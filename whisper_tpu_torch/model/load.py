@@ -1,0 +1,67 @@
+"""Model loading: GGML file -> WhisperModel on one torch device.
+
+Port of ``whisper_tpu/model/load.py`` through the pure-Python GGML reader
+(``whisper_tpu.io.ggml.load_ggml``); the native C++ reader is not wired yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from whisper_tpu.config import WhisperConfig
+from whisper_tpu.io.ggml import load_ggml
+from whisper_tpu.io.vocab import WhisperVocab
+from whisper_tpu.model.params import params_from_ggml
+from whisper_tpu.utils.logging import StageTimers, get_logger
+
+from .decoder import TextDecoder
+from .encoder import AudioEncoder
+from .params import Params, params_to_torch
+
+log = get_logger("torch.model")
+
+
+@dataclasses.dataclass
+class WhisperModel:
+    config: WhisperConfig
+    params: Params          # tensor tree, the JAX package's layout
+    filters: torch.Tensor   # (n_mel, 201) f32
+    vocab: WhisperVocab
+    encoder: AudioEncoder
+    decoder: TextDecoder
+    timers: StageTimers = dataclasses.field(default_factory=StageTimers)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.params["decoder"]["te"].dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.filters.device
+
+
+def load_model(path: str, *, device: torch.device | str,
+               dtype: torch.dtype = torch.float32,
+               gelu_impl: str = "erf") -> WhisperModel:
+    """Load a GGML checkpoint onto ``device`` with weights in ``dtype``
+    (f32 for parity, bf16 for serving); moments and softmax always run f32."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"dtype must be float32 or bfloat16, got {dtype}")
+    t0 = time.perf_counter()
+    ckpt = load_ggml(path)
+    config = dataclasses.replace(ckpt.config, gelu_impl=gelu_impl)
+    params = params_to_torch(params_from_ggml(ckpt.tensors, config, dtype=np.float32),
+                             device, dtype)
+    filters = torch.from_numpy(ckpt.filters).to(device=device, dtype=torch.float32)
+    model = WhisperModel(config=config, params=params, filters=filters, vocab=ckpt.vocab,
+                         encoder=AudioEncoder(params, config),
+                         decoder=TextDecoder(params, config))
+    model.timers.totals["load"] = time.perf_counter() - t0
+    model.timers.counts["load"] = 1
+    log.info("loaded %s (%s, %s on %s) in %.2fs", path, config.model_type, dtype,
+             filters.device, model.timers.totals["load"])
+    return model
