@@ -44,6 +44,17 @@ class DecodingOptions:
 _PREFILL_BUCKET = 32
 
 
+def _cross_batch(cross) -> int:
+    """Batch size of the (L, B, ...) cross memory, float or QuantKV."""
+    return getattr(cross, "data", cross).shape[1]
+
+
+def _cache_dtype(cross) -> torch.dtype:
+    """Self-cache dtype: bf16 when the cross memory is int8."""
+    arr = getattr(cross, "data", cross)
+    return torch.bfloat16 if arr.dtype == torch.int8 else arr.dtype
+
+
 def _pad_to_bucket(tokens: np.ndarray) -> Tuple[np.ndarray, int]:
     t = tokens.shape[1]
     padded = (t + _PREFILL_BUCKET - 1) // _PREFILL_BUCKET * _PREFILL_BUCKET
@@ -101,10 +112,11 @@ class DecodingTask:
         return tokens
 
 
-def decode_full(decoder: TextDecoder, vocab: WhisperVocab, cross_k: torch.Tensor,
-                cross_v: torch.Tensor, options: DecodingOptions) -> List[DecodingResult]:
-    """Decode encoded windows (cross memory (L, B, H, D, Ta)) greedily, or by
-    sampling at ``options.temperature``, one result per window."""
+def decode_full(decoder: TextDecoder, vocab: WhisperVocab, cross_k, cross_v,
+                options: DecodingOptions) -> List[DecodingResult]:
+    """Decode encoded windows (cross memory (L, B, H, D, Ta), float or
+    ``QuantKV``) greedily, or by sampling at ``options.temperature``, one
+    result per window."""
     if options.beam_size is not None or (options.best_of or 1) != 1:
         raise NotImplementedError("beam search and best_of are not ported yet")
     return _decode_full_device(decoder, vocab, cross_k, cross_v, options)
@@ -148,18 +160,17 @@ def _greedy_device_results(toks, lengths, sum_lp, nosp, vocab: WhisperVocab,
     return results
 
 
-def _decode_full_device(decoder: TextDecoder, vocab: WhisperVocab, cross_k: torch.Tensor,
-                        cross_v: torch.Tensor, options: DecodingOptions
-                        ) -> List[DecodingResult]:
+def _decode_full_device(decoder: TextDecoder, vocab: WhisperVocab, cross_k, cross_v,
+                        options: DecodingOptions) -> List[DecodingResult]:
     from .device_loop import decode_segment_device
 
     config = decoder.cfg
-    n_audio = cross_k.shape[1]
-    device = cross_k.device
+    n_audio = _cross_batch(cross_k)
+    device = getattr(cross_k, "data", cross_k).device
     (task, padded, true_len, sup_mask, blank_mask, max_initial_index,
      sample_len) = _device_decode_prologue(config, vocab, options, n_audio, device)
     # The segment never outgrows prefill + sample budget.
-    cache = init_cache(config, n_audio, dtype=cross_k.dtype, device=device,
+    cache = init_cache(config, n_audio, dtype=_cache_dtype(cross_k), device=device,
                        ctx=padded.shape[1] + sample_len + 8)
     generator = None
     if options.temperature > 0.0:

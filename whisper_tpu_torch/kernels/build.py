@@ -16,6 +16,7 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -92,3 +93,15 @@ def load_library(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(out))
             _libs[name] = lib
         return lib
+
+
+def build_all(names) -> None:
+    """Compile the kernels not built yet all at once, one nvcc process each,
+    then load every one."""
+    todo = {name: _library_path(name) for name in names}
+    todo = {name: out for name, out in todo.items() if not out.exists()}
+    if todo:
+        with ThreadPoolExecutor(max_workers=len(todo)) as pool:
+            list(pool.map(_compile, todo, todo.values()))
+    for name in names:
+        load_library(name)

@@ -9,26 +9,36 @@ Port of ``whisper_tpu/model/decoder.py`` for a scalar ``n_past``:
     Q scaled by the same factor here;
   * logits are the tied token embedding's transpose, in f32.
 
-Not ported yet: ``permute_rows``, ragged ``n_past``, ``defer_append``, the
-int8 cache, ``decode_step_chunk`` and ``cross_attention_probs``.
+int8 serving mode (``model.quant``): int8 weights with ``*_scale`` entries
+go through ``_plinear`` (weight-only, the scale after an f32 product), a
+fused ``qkv_w`` replaces Q/K/V, an int8 tied embedding carries
+``te_scale``, and ``QuantKV`` cross memory and self cache are read by the
+int8 decode-attention kernel (K4, ``kernels.cross_attention_int8``).
+
+Not ported yet: ``permute_rows``, ragged ``n_past``, ``defer_append``,
+group-shared cross memory (beam), ``decode_step_chunk`` and
+``cross_attention_probs``.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 from torch import nn
 
 from whisper_tpu.config import WhisperConfig
 
+from ..kernels.cross_attention_int8 import cross_attention_int8
 from ..kernels.ops import NEG, gelu, layer_norm, linear, merge_heads, split_heads
-from .params import Params, check_not_quantized, register_weights
+from .params import Params, check_quantized, register_weights
+from .quant import QuantKV, _quantize_one
 
 
 class KVCache(NamedTuple):
-    k: torch.Tensor  # (B, n_layer, H, d_head, ctx)
-    v: torch.Tensor
+    # (B, n_layer, H, d_head, ctx); QuantKV (model.quant.init_quant_cache) for int8
+    k: Union[torch.Tensor, QuantKV]
+    v: Union[torch.Tensor, QuantKV]
 
 
 def init_cache(cfg: WhisperConfig, batch: int, dtype: torch.dtype,
@@ -45,6 +55,42 @@ def to_kv_major(x: torch.Tensor, n_head: int) -> torch.Tensor:
     return x.unflatten(-1, (n_head, -1)).movedim(-3, -1)
 
 
+def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (..., I) @ w (O, I)ᵀ with an f32 result from operands of x's dtype
+    (JAX's ``preferred_element_type=f32``); an int8 w converts exactly. On
+    CUDA the product writes f32 itself (``torch.mm(..., out_dtype=)``); on
+    the CPU, where that op has no kernel, the operands are upcast. The
+    products are exact in f32 either way; only the order of the sums differs."""
+    w = w.to(x.dtype)
+    if x.device.type == "cuda":
+        y = torch.mm(x.reshape(-1, x.shape[-1]), w.T, out_dtype=torch.float32)
+        return y.unflatten(0, x.shape[:-1])
+    return torch.matmul(x.float(), w.float().T)
+
+
+def _scalar(value: float, dtype: torch.dtype) -> float:
+    """A Python scalar rounded to ``dtype``, as JAX's weak typing multiplies."""
+    return torch.tensor(value, dtype=dtype).item()
+
+
+def _plinear(y: torch.Tensor, blk: nn.Module, name: str,
+             bias_name: Optional[str] = None) -> torch.Tensor:
+    """linear() that takes an int8 weight with its per-output-channel
+    ``<name>_scale`` through ``wo_qlinear``."""
+    w = getattr(blk, name)
+    s = getattr(blk, name + "_scale", None)
+    b = getattr(blk, bias_name) if bias_name else None
+    return linear(y, w, b) if s is None else wo_qlinear(y, w, s, b)
+
+
+def wo_qlinear(y: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor,
+               b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Weight-only int8 linear: the per-output-channel scale multiplies the
+    f32 product, then the result rounds to y's dtype and the bias is added."""
+    out = (matmul_f32(y, w8) * scale).to(y.dtype)
+    return out + b if b is not None else out
+
+
 def _kvmajor_sdpa(q, k, v, mask: Optional[torch.Tensor], scale: float):
     """softmax(q kᵀ * scale, masked) v with f32 scores and softmax.
 
@@ -58,27 +104,38 @@ def _kvmajor_sdpa(q, k, v, mask: Optional[torch.Tensor], scale: float):
 
 
 def _project_qkv(y, blk: "DecoderBlock", h: int):
-    """Self-attention projections: q (B,H,T,D), new K/V (B,H,D,T)."""
-    q = split_heads(linear(y, blk.q_w, blk.q_b), h)
-    k_new = to_kv_major(linear(y, blk.k_w), h)  # no bias
-    v_new = to_kv_major(linear(y, blk.v_w, blk.v_b), h)
+    """Self-attention projections: q (B,H,T,D), new K/V (B,H,D,T); one
+    matmul when the block carries a fused ``qkv_w``."""
+    if hasattr(blk, "qkv_w"):
+        qkv = _plinear(y, blk, "qkv_w", "qkv_b")
+        n = qkv.shape[-1] // 3
+        return (split_heads(qkv[..., :n], h), to_kv_major(qkv[..., n:2 * n], h),
+                to_kv_major(qkv[..., 2 * n:], h))
+    q = split_heads(_plinear(y, blk, "q_w", "q_b"), h)
+    k_new = to_kv_major(_plinear(y, blk, "k_w"), h)  # no bias
+    v_new = to_kv_major(_plinear(y, blk, "v_w", "v_b"), h)
     return q, k_new, v_new
 
 
 def _cross_mlp(x, blk: "DecoderBlock", cross_k, cross_v, cfg: WhisperConfig):
-    """Cross-attention over the encoder memory, then the MLP."""
+    """Cross-attention over the encoder memory (float, or int8 ``QuantKV``
+    through K4), then the MLP."""
     h, d = cfg.n_text_head, cfg.d_head_text
-    if cross_k.shape[0] != x.shape[0]:
+    if getattr(cross_k, "data", cross_k).shape[0] != x.shape[0]:
         raise NotImplementedError("group-shared cross memory (beam groups) is not ported yet")
     y = layer_norm(x, blk.cross_attn_ln_w, blk.cross_attn_ln_b)
-    qc = split_heads(linear(y, blk.cross_q_w, blk.cross_q_b), h)
+    qc = split_heads(_plinear(y, blk, "cross_q_w", "cross_q_b"), h)
     # cross_k carries d^-0.25; JAX multiplies q by the rest rounded to q's dtype.
-    qc = qc * torch.tensor(d ** -0.25, dtype=qc.dtype).item()
-    o = _kvmajor_sdpa(qc, cross_k, cross_v, None, 1.0)
-    x = x + linear(merge_heads(o), blk.cross_out_w, blk.cross_out_b)
+    qc = qc * _scalar(d ** -0.25, qc.dtype)
+    if isinstance(cross_k, QuantKV):
+        o = cross_attention_int8(qc.contiguous(), cross_k.data, cross_k.scale,
+                                 cross_v.data, cross_v.scale)
+    else:
+        o = _kvmajor_sdpa(qc, cross_k, cross_v, None, 1.0)
+    x = x + _plinear(merge_heads(o), blk, "cross_out_w", "cross_out_b")
     y = layer_norm(x, blk.mlp_ln_w, blk.mlp_ln_b)
-    y = gelu(linear(y, blk.mlp0_w, blk.mlp0_b), cfg.gelu_impl)
-    return x + linear(y, blk.mlp1_w, blk.mlp1_b)
+    y = gelu(_plinear(y, blk, "mlp0_w", "mlp0_b"), cfg.gelu_impl)
+    return x + _plinear(y, blk, "mlp1_w", "mlp1_b")
 
 
 class DecoderBlock(nn.Module):
@@ -92,20 +149,32 @@ class DecoderBlock(nn.Module):
     def forward(self, x, cache: KVCache, layer: int, cross_k, cross_v, n_past: int):
         """Causal self-attention over the cache, then cross-attention and
         MLP. The T new K/V columns are written into ``cache`` in place at
-        ``n_past`` (clamped, like ``dynamic_update_slice``, so they fit)."""
+        ``n_past`` (clamped, like ``dynamic_update_slice``, so they fit);
+        an int8 cache takes them quantized, codes and scales."""
         cfg = self.cfg
         h, d = cfg.n_text_head, cfg.d_head_text
         T = x.shape[1]
-        C = cache.k.shape[-1]
+        C = getattr(cache.k, "data", cache.k).shape[-1]
         y = layer_norm(x, self.attn_ln_w, self.attn_ln_b)
         q, k_new, v_new = _project_qkv(y, self, h)
         start = max(0, min(n_past, C - T))
-        cache.k[:, layer, :, :, start:start + T] = k_new
-        cache.v[:, layer, :, :, start:start + T] = v_new
-        key_pos = torch.arange(C, device=x.device)[None, :]
-        q_pos = n_past + torch.arange(T, device=x.device)[:, None]
-        o = _kvmajor_sdpa(q, cache.k[:, layer], cache.v[:, layer], key_pos <= q_pos, d ** -0.5)
-        x = x + linear(merge_heads(o), self.out_w, self.out_b)
+        if isinstance(cache.k, QuantKV):
+            for buf, new in ((cache.k, k_new), (cache.v, v_new)):
+                q8 = _quantize_one(new)
+                buf.data[:, layer, :, :, start:start + T] = q8.data
+                buf.scale[:, layer, :, start:start + T] = q8.scale
+            qs = q * _scalar(d ** -0.5, q.dtype)
+            o = cross_attention_int8(qs.contiguous(), cache.k.data[:, layer],
+                                     cache.k.scale[:, layer], cache.v.data[:, layer],
+                                     cache.v.scale[:, layer], n_past=n_past)
+        else:
+            cache.k[:, layer, :, :, start:start + T] = k_new
+            cache.v[:, layer, :, :, start:start + T] = v_new
+            key_pos = torch.arange(C, device=x.device)[None, :]
+            q_pos = n_past + torch.arange(T, device=x.device)[:, None]
+            o = _kvmajor_sdpa(q, cache.k[:, layer], cache.v[:, layer], key_pos <= q_pos,
+                              d ** -0.5)
+        x = x + _plinear(merge_heads(o), self, "out_w", "out_b")
         return _cross_mlp(x, self, cross_k, cross_v, cfg)
 
 
@@ -114,7 +183,7 @@ class TextDecoder(nn.Module):
 
     def __init__(self, params: Params, cfg: WhisperConfig):
         super().__init__()
-        check_not_quantized(params)
+        check_quantized(params)
         dec = params["decoder"]
         self.cfg = cfg
         register_weights(self, {k: v for k, v in dec.items() if k != "blocks"})
@@ -127,11 +196,18 @@ class TextDecoder(nn.Module):
         return decode_step(self, tokens, n_past, cache, cross_k, cross_v)
 
 
+def _layer(cross, layer: int):
+    """One decoder layer of the (L, ...) cross memory, float or QuantKV."""
+    if isinstance(cross, QuantKV):
+        return QuantKV(cross.data[layer], cross.scale[layer])
+    return cross[layer]
+
+
 def decode_step(decoder: TextDecoder, tokens: torch.Tensor, n_past: int, cache: KVCache,
-                cross_k: torch.Tensor, cross_v: torch.Tensor
-                ) -> Tuple[torch.Tensor, KVCache]:
+                cross_k, cross_v) -> Tuple[torch.Tensor, KVCache]:
     """Forward ``T`` new tokens (B, T) at position ``n_past``; returns
-    (logits (B, T, n_vocab) f32, cache), the cache updated in place.
+    (logits (B, T, n_vocab) f32, cache), the cache updated in place. The
+    cross memory (L, B, H, D, Ta) is float or ``QuantKV``.
 
     Padded tail positions write garbage K/V past ``n_past + true_len``;
     callers advance ``n_past`` by the true length only, so the next call
@@ -139,12 +215,16 @@ def decode_step(decoder: TextDecoder, tokens: torch.Tensor, n_past: int, cache: 
     gather does, where torch indexing would raise."""
     T = tokens.shape[1]
     V = decoder.te.shape[0]
+    te_scale = getattr(decoder, "te_scale", None)
     ids = torch.where(tokens < 0, tokens + V, tokens).clamp(0, V - 1)
     x = decoder.te[ids].to(decoder.pe.dtype)
+    if te_scale is not None:
+        x = x * te_scale[ids][..., None].to(x.dtype)
     start = max(0, min(n_past, decoder.pe.shape[0] - T))  # dynamic_slice clamps
     x = x + decoder.pe[start:start + T][None]
     for layer, block in enumerate(decoder.blocks):
-        x = block(x, cache, layer, cross_k[layer], cross_v[layer], n_past)
+        x = block(x, cache, layer, _layer(cross_k, layer), _layer(cross_v, layer), n_past)
     x = layer_norm(x, decoder.ln_w, decoder.ln_b)
-    logits = torch.matmul(x.float(), decoder.te.float().T)
-    return logits, cache
+    if te_scale is None:
+        return torch.matmul(x.float(), decoder.te.float().T), cache
+    return matmul_f32(x, decoder.te) * te_scale, cache

@@ -37,11 +37,20 @@ class WhisperModel:
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.params["decoder"]["te"].dtype
+        """The activation dtype (the positional embedding's: weights may be int8)."""
+        return self.params["decoder"]["pe"].dtype
 
     @property
     def device(self) -> torch.device:
         return self.filters.device
+
+    def with_params(self, params: Params) -> "WhisperModel":
+        """The same model on a new parameter tree (for example one from
+        ``utils.benchmark.prepare_serving_params``), with its encoder and
+        decoder modules rebuilt from it."""
+        return dataclasses.replace(self, params=params,
+                                   encoder=AudioEncoder(params, self.config),
+                                   decoder=TextDecoder(params, self.config))
 
 
 def load_model(path: str, *, device: torch.device | str,

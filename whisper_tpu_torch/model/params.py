@@ -15,6 +15,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from .quant import _ENC_WEIGHT_KEYS
+
 Params = Dict[str, Any]
 
 
@@ -30,15 +32,22 @@ def params_to_torch(params: Params, device: torch.device | str,
     }
 
 
-def check_not_quantized(params: Params) -> None:
-    """The int8/W8A8 weight forms (``*_scale`` keys, fused QKV) come with the
-    port of model/quant.py; until then they are refused, not misread."""
+def check_quantized(params: Params) -> None:
+    """Each ``<name>_scale`` entry (``model.quant``) must scale an int8
+    ``<name>``: a scale beside a float weight would be misread, so it raises.
+    The encoder blocks are W8A8 in all six projections or in none."""
     for part in ("encoder", "decoder"):
         tree = dict(params[part], **params[part]["blocks"])
-        odd = sorted(k for k in tree if k.endswith("_scale") or k.startswith("qkv_"))
-        if odd:
-            raise NotImplementedError(
-                f"quantized {part} weights ({', '.join(odd)}) are not ported yet")
+        for key in sorted(k for k in tree if k.endswith("_scale")):
+            w = tree.get(key[:-len("_scale")])
+            if w is None or w.dtype != torch.int8:
+                raise ValueError(f"{part} {key} needs an int8 {key[:-len('_scale')]}, "
+                                 f"got {None if w is None else w.dtype}")
+    blocks = params["encoder"]["blocks"]
+    n_scaled = sum(name + "_scale" in blocks for name in _ENC_WEIGHT_KEYS)
+    if n_scaled not in (0, len(_ENC_WEIGHT_KEYS)):
+        raise ValueError(f"encoder blocks have scales for {n_scaled} of the "
+                         f"{len(_ENC_WEIGHT_KEYS)} projections {_ENC_WEIGHT_KEYS}: W8A8 needs all")
 
 
 def register_weights(module: nn.Module, tensors: Dict[str, torch.Tensor]) -> None:
