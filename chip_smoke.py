@@ -19,7 +19,9 @@ then exits non-zero without the final "ok" line:
    greedy tokens must agree.
 5. main path: a synthetic large-v3 checkpoint (random weights from a seed),
    loaded in bf16 on the card, transcribes a batch of 8 30 s clips through
-   load_model + BatchTranscriber.transcribe_batch, with timestamps.
+   load_model + BatchTranscriber.transcribe_batch, with timestamps; the
+   decoder's self-attention runs cached_attention (K5) n_text_layer times
+   per forward.
 6. int8 kernels: fused_quant (K2 "act", K3 "ln" and "gelu") and
    cross_attention_int8 (K4, cross and causal self) against their plain
    versions at the int8 main path's shapes, timed in turns as in phase 3;
@@ -32,8 +34,31 @@ then exits non-zero without the final "ok" line:
 8. int8 main path: phase 5's large-v3 model prepared the same way runs
    make_serving_step at batch 64, 64 tokens, int8 cross memory and cache,
    twice, with the launch count of every kernel checked per step.
+9. decode kernels: cached_attention (K5, bf16 and f32, at the greedy step,
+   its prefill bucket and the host beam's shape), permute_rows_multi (K6, on
+   the 160-row int8 cache's four leaves with repeated rows, and on a bf16
+   K/V pair) and cow_copy_rows (K7, the int8 cache with 1, 8, 32 and 96
+   forked rows from cow_assign) against their plain versions, timed in turns, with
+   the time of one PyTorch library call for the same function beside them.
+10. beam parity: phase 4's checkpoint, beam 3, both decode_full routes on
+   the CPU (plain versions) and on the card (kernels); tokens must be
+   identical across devices, and the device beam must equal the host beam.
+11. int8 beam main path: phase 8's prepared model runs make_serving_step at
+   batch 32 with beam 5 (160 decoder rows, group-shared cross memory),
+   twice; per forward n_text_layer K4 cross launches over batch 32 with 5
+   query rows, n_text_layer K4 self launches, and exactly one K7 per decode
+   step. The first run wraps K4 and K7 to record the cross q shapes and the
+   forked rows and is not timed; the second runs as served and is timed.
+12. bf16 host beam: phase 5's model through BatchTranscriber with beam 5
+   over 4 clips, twice in the same way: K5 at every forward, K6 at every
+   step whose beam sources moved (counted in the first run).
 
-It imports nothing of jax. TF32 is switched off for matmuls and cuDNN
+The line before the last is the kernels JSON: every kernel with its
+main-path launches, error against its plain version, kernel, plain and
+library times, and its bound (bytes over 3.35 TB/s or operations over the
+peak rate of their type, whichever is larger; under a causal mask only the
+keys it lets through count). It imports nothing of jax
+and nothing of the JAX package. TF32 is switched off for matmuls and cuDNN
 convolutions, so the f32 comparisons are full f32.
 """
 
@@ -48,18 +73,24 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from whisper_tpu.config import PRESETS, WhisperConfig
-from whisper_tpu.io.ggml import tensor_schema, write_ggml
-from whisper_tpu_torch.decoding.task import DecodingOptions
+from whisper_tpu_torch.config import PRESETS, SAMPLE_RATE, WhisperConfig
+from whisper_tpu_torch.decoding.device_beam import cow_assign
+from whisper_tpu_torch.decoding.sequence import BeamSearchDecoder
+from whisper_tpu_torch.decoding.task import DecodingOptions, decode_full
 from whisper_tpu_torch.frontend.mel import (frame_count, log_mel_spectrogram, mel_filter_bank,
                                             mel_window)
-from whisper_tpu_torch.kernels import build
+from whisper_tpu_torch.io.ggml import tensor_schema, write_ggml
+from whisper_tpu_torch.kernels import beam_gather, build
 from whisper_tpu_torch.kernels import fused_quant
 from whisper_tpu_torch.kernels.cross_attention_int8 import (cross_attention_int8,
                                                             cross_attention_int8_reference)
+from whisper_tpu_torch.kernels.decode_attention import (cached_attention,
+                                                        cached_attention_reference, causal_mask)
 from whisper_tpu_torch.kernels.flash_attention import flash_attention, flash_attention_reference
 from whisper_tpu_torch.kernels.ops import gelu, layer_norm
+from whisper_tpu_torch.model import decoder as decoder_module
 from whisper_tpu_torch.model.decoder import KVCache, decode_step, init_cache
 from whisper_tpu_torch.model.encoder import encode
 from whisper_tpu_torch.model.load import load_model
@@ -69,7 +100,6 @@ from whisper_tpu_torch.utils.benchmark import make_serving_step, prepare_serving
 
 ROOT = Path(__file__).resolve().parent
 CKPT_DIR = ROOT / "build" / "synthetic"
-SAMPLE_RATE = 16000
 
 # Tolerances (atol, rtol), kernel vs plain version on the same inputs; an
 # element passes when |kernel - plain| <= atol + rtol * |plain|:
@@ -100,6 +130,10 @@ PARITY_ATOL = 3e-4
 # GELU that skips the bf16 round trip ~2e-2, so both fail; phase 6 plants
 # the first and checks that it is caught.
 FQ_BOUNDS = {"act": (0.0, 0, 0.0), "gelu": (2 ** -23, 1, 1e-4), "ln": (2 ** -7, 1, 1e-4)}
+# f32 operations per element of fused_quant, for its bound: the quantizer
+# (|x|, max, divide, round) 4; LN's moments, normalise and affine 8 more;
+# the erf GELU (A-S polynomial, exp) ~16 more. Either way it is bound by bytes.
+FQ_OPS = {"act": 4, "ln": 12, "gelu": 20}
 # K4 vs quant_sdpa. Both take the same f32 logits and softmax and round the
 # NORMALISED p * v_scale to bf16 (two passes, no online softmax), so only the
 # order of the f32 sums differs: a bf16 output may move by one ulp (2^-7 of
@@ -111,7 +145,19 @@ K4_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (1e-3, 2 ** -7)}
 # which moves the next product's row and more codes after it.
 INT8_PARITY_ATOL = 1e-2
 INT8_AGREEMENT = 0.9
-KERNELS = ("flash_attention", "fused_quant", "cross_attention_int8")
+# K5 vs _kvmajor_sdpa: K4's reasoning. Both take the same f32 logits and
+# softmax and round the NORMALISED p to the cache's dtype (two passes, no
+# online softmax), so only the order of the f32 sums differs: a bf16 output
+# may move by one ulp (2^-7 of its magnitude), an f32 one by f32 noise.
+K5_TOL = K4_TOL
+KERNELS = ("flash_attention", "fused_quant", "cross_attention_int8", "decode_attention",
+           "beam_gather")
+INT8_PATH = ("k1", "act", "ln", "gelu", "k4", "k4_self")  # the int8 greedy step's kernels
+# The card's published peaks (NVIDIA's H100 SXM data sheet, dense rates):
+# device memory rate, and operations per second by the type the kernel
+# computes in (bf16 on the tensor cores, f32 on CUDA cores).
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 
 def log(msg: str) -> None:
@@ -161,6 +207,36 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def bound_ms(n_bytes: float, n_ops: float, dtype) -> tuple:
+    """(the least time the card could take, in ms; "bytes" or "operations",
+    whichever bounds it): each input read once and each output written once
+    over the memory rate, against the operations over the peak of their
+    type."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / PEAK_OPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def causal_keys(n_past, tq: int, c: int) -> tuple:
+    """(key positions any query sees, query-key pairs summed over the
+    queries) under the mask key <= n_past + t; every key when n_past is None."""
+    if n_past is None:
+        return c, tq * c
+    return min(c, n_past + tq), sum(min(c, n_past + t + 1) for t in range(tq))
+
+
+def graph_ms(fn, iters: int) -> float:
+    """CUDA-event time of one call captured in a CUDA graph and replayed:
+    the device time of a small kernel without the wrapper's host cost."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return cuda_ms(graph.replay, iters)
 
 
 def in_turns(plain, kern, iters: int):
@@ -233,8 +309,13 @@ def phase_kernel(card: str) -> dict:
         if not ok:
             raise AssertionError(f"flash_attention disagrees with its plain version: "
                                  f"max_abs_err {err}, atol {atol}, rtol {rtol}")
-        if main is None:
-            main = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        if main is None:  # the b8 bf16 row: bound and library call
+            bound, by = bound_ms(nbytes(q, k, v, out), 4 * b * h * tq * tk * 64, dtype)
+            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), iters)
+            log(f"[kernel] flash_attention ({b * h}, {tq}x{tk}, 64) {str(dtype)[6:]}: bound "
+                f"{bound:.4f} ms ({by}), F.scaled_dot_product_attention {lib_ms:.4f} ms; {card}")
+            main = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                    "bound_by": by, "library_ms": lib_ms}
         del q, k, v, out, ref, diff
     torch.cuda.empty_cache()  # the b64 plain version held ~29 GB of scores
     return main
@@ -311,7 +392,7 @@ def phase_parity(card: str) -> None:
 
 
 def phase_main_path(card: str):
-    """Returns (K1 launches of the first run, the bf16 large-v3 model)."""
+    """Returns (the first run's launches, the bf16 large-v3 model)."""
     cfg = PRESETS["large-v3"]
     CKPT_DIR.mkdir(parents=True, exist_ok=True)
     path = CKPT_DIR / "large-v3-f16-seed0.bin"
@@ -333,20 +414,22 @@ def phase_main_path(card: str):
         model.timers.totals.clear()
         model.timers.counts.clear()
         torch.cuda.reset_peak_memory_stats()
-        flash_attention.launches = 0
+        _zero_launches()
         t0 = time.perf_counter()
         results = bt.transcribe_batch(audios)
         wall = time.perf_counter() - t0
-        n_launch = flash_attention.launches
+        n = _read_launches()
+        n_launch, n_k5 = n["k1"], n["k5"]
         if run == 1:
-            launches = n_launch
+            launches = n
         peak = torch.cuda.max_memory_allocated()
         tm = model.timers.totals
         n_tok = sum(len(r.tokens) for r in results)
         log(f"[main] run {run}: 8 x 30 s, bf16, greedy, timestamps, sample_len 64: "
             f"mel {tm['mel'] * 1e3:.1f} ms, encode {tm['encode'] * 1e3:.1f} ms, "
             f"decode {tm['decode'] * 1e3:.1f} ms, total {wall * 1e3:.1f} ms; "
-            f"{n_tok} tokens; peak {peak / 1e9:.2f} GB; flash_attention launches {n_launch}; {card}")
+            f"{n_tok} tokens; peak {peak / 1e9:.2f} GB; flash_attention launches {n_launch}, "
+            f"cached_attention {n_k5} ({n_k5 // cfg.n_text_layer} forwards); {card}")
         if len(results) != 8:
             raise AssertionError(f"expected 8 results, got {len(results)}")
         for r in results:
@@ -357,6 +440,9 @@ def phase_main_path(card: str):
         if n_launch != cfg.n_audio_layer:
             raise AssertionError(f"flash_attention launched {n_launch} times in one "
                                  f"encode, expected {cfg.n_audio_layer}")
+        if not (n_k5 and n_k5 % cfg.n_text_layer == 0 and n_k5 // cfg.n_text_layer <= 65):
+            raise AssertionError(f"cached_attention launched {n_k5} times, not n_text_layer "
+                                 f"({cfg.n_text_layer}) per forward over at most 65 forwards")
     log(f"[main] stream 0: {results[0].tokens[:12]}... avg_logprob "
         f"{results[0].avg_logprob:.4f} no_speech_prob {results[0].no_speech_prob:.4f}")
     return launches, model
@@ -438,8 +524,13 @@ def phase_int8_kernels(card: str) -> dict:
                 f"{'passes the bound: NOT caught' if passes else 'fails the bound: caught'}")
             if passes:
                 raise AssertionError("the fused_quant bound does not tell a tanh GELU from erf")
+        # inputs read once (x, and LN's affine), int8 codes and f32 scales
+        # written once; the f32 operations per element counted as FQ_OPS
+        b_ms, by = bound_ms(nbytes(x, *((w, b) if mode == "ln" else ())) + n * d + 4 * n,
+                            n * d * FQ_OPS[mode.split("-")[0]], torch.float32)
         rows[mode if dtype == torch.bfloat16 else f"{mode}-f32"] = {
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": by, "library_ms": None}
         del x, got
     for name, bsz, h, tq, c, n_past, dtype in K4_CASES:
         q = (torch.randn(bsz, h, tq, 64, device="cuda", generator=gen) * 0.3).to(dtype)
@@ -460,7 +551,8 @@ def phase_int8_kernels(card: str) -> dict:
         ok = bool((diff <= atol + rtol * ref.float().abs()).all())
         ms, plain_ms, t = in_turns(lambda: cross_attention_int8_reference(*args),
                                    lambda: cross_attention_int8(*args), 50)
-        gbps = bsz * h * 2 * 64 * c / (ms * 1e-3) / 1e9
+        c_eff, pairs = causal_keys(n_past, tq, c)
+        gbps = bsz * h * 2 * 64 * c_eff / (ms * 1e-3) / 1e9
         log(f"[int8-kernel] cross_attention_int8 {name} q ({bsz}, {h}, {tq}, 64) "
             f"{str(dtype)[6:]} over {c} keys, n_past {n_past}: max_abs_err {err:.3e} "
             f"(atol {atol:.0e}, rtol {rtol:.1e}); kernel {ms:.4f} ms ({t[1]:.4f}, {t[2]:.4f}), "
@@ -469,7 +561,11 @@ def phase_int8_kernels(card: str) -> dict:
         if not ok:
             raise AssertionError(f"cross_attention_int8 {name} disagrees with its plain version: "
                                  f"max_abs_err {err}")
-        rows[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        # only the keys the mask lets through: codes and scales of K and V
+        b_ms, by = bound_ms(nbytes(q, out) + 2 * bsz * h * c_eff * (64 + 4),
+                            4 * bsz * h * pairs * 64, dtype)
+        rows[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                      "bound_by": by, "library_ms": None}
     if fused_quant.act_quant.launches == 0 or cross_attention_int8.masked_launches == 0:
         raise AssertionError("the int8 kernels were not launched")
     torch.cuda.empty_cache()
@@ -525,7 +621,7 @@ def phase_int8_parity(card: str) -> None:
     n_tok = 48
     _zero_launches()
     toks = {dev: make_serving_step(m, batch, n_tok, "int8")(audio) for dev, m in models.items()}
-    n = _read_launches()
+    n = {key: v for key, v in _read_launches().items() if key in INT8_PATH}
     if min(n.values()) == 0:
         raise AssertionError(f"a kernel of the int8 path was not launched on the card: {n}")
     sot = models["cpu"].vocab.token_sot
@@ -558,16 +654,21 @@ def _zero_launches() -> None:
     fused_quant.act_quant.launches = fused_quant.ln_quant.launches = 0
     fused_quant.gelu_quant.launches = 0
     cross_attention_int8.launches = cross_attention_int8.masked_launches = 0
+    cached_attention.launches = 0
+    beam_gather.permute_rows_multi.launches = beam_gather.cow_copy_rows.launches = 0
 
 
 def _read_launches() -> dict:
     return {"k1": flash_attention.launches, "act": fused_quant.act_quant.launches,
             "ln": fused_quant.ln_quant.launches, "gelu": fused_quant.gelu_quant.launches,
-            "k4": cross_attention_int8.launches, "k4_self": cross_attention_int8.masked_launches}
+            "k4": cross_attention_int8.launches, "k4_self": cross_attention_int8.masked_launches,
+            "k5": cached_attention.launches, "k6": beam_gather.permute_rows_multi.launches,
+            "k7": beam_gather.cow_copy_rows.launches}
 
 
-def phase_int8_main_path(card: str, model) -> dict:
-    """The int8 serving step at batch 64; returns the first run's launches."""
+def phase_int8_main_path(card: str, model):
+    """The int8 serving step at batch 64; returns (the first run's launches,
+    the prepared model)."""
     cfg = model.config
     t0 = time.perf_counter()
     served = model.with_params(prepare_serving_params(model.params))
@@ -610,7 +711,332 @@ def phase_int8_main_path(card: str, model) -> dict:
         if not ((toks >= 0) & (toks < cfg.n_vocab)).all():
             raise AssertionError("token out of the vocab")
     log(f"[int8-main] row 0: {toks[0, :12].tolist()}... length {int(lengths[0])}")
-    return first
+    return first, served
+
+
+K5_CASES = [  # (name, batch, heads, tq, ctx, n_past, dtype): layer 2 of a (B, 4, H, 64, C) cache
+    ("b8", 8, 20, 1, 104, 40, torch.bfloat16),          # phase 5's greedy step, large-v3 b8
+    ("b8-prefill", 8, 20, 32, 104, 0, torch.bfloat16),  # its 32-token prefill bucket
+    ("beam", 20, 20, 1, 448, 40, torch.bfloat16),       # phase 12's host beam, 4 x 5 rows
+    ("b8-f32", 8, 20, 1, 104, 40, torch.float32),
+    ("b8-prefill-f32", 8, 20, 32, 104, 0, torch.float32),
+    ("beam-f32", 20, 20, 1, 448, 40, torch.float32),
+]
+BEAM_GROUPS, BEAM = 32, 5  # phase 11: 32 windows x 5 beams = 160 decoder rows
+
+
+def _int8_beam_cache(gen, rows: int, ctx: int):
+    """The four leaves of an int8 self cache of ``rows`` rows: K and V codes
+    (rows, 32, 20, 64, ctx) and f32 scales (rows, 32, 20, ctx)."""
+    leaves = []
+    for _ in range(2):
+        leaves.append(torch.randint(-127, 128, (rows, 32, 20, 64, ctx), dtype=torch.int8,
+                                    device="cuda", generator=gen))
+        leaves.append(torch.rand((rows, 32, 20, ctx), device="cuda", generator=gen))
+    return leaves
+
+
+def _k5_cases(card: str, gen, rows: dict) -> None:
+    for name, bsz, h, tq, c, n_past, dtype in K5_CASES:
+        q = (torch.randn(bsz, h, tq, 64, device="cuda", generator=gen) * 0.5).to(dtype)
+        kc, vc = (torch.randn(bsz, 4, h, 64, c, device="cuda", generator=gen).to(dtype)
+                  for _ in range(2))
+        k, v = kc[:, 2], vc[:, 2]  # one layer, read in place
+        args = (q, k, v, n_past)
+        out = cached_attention(*args)
+        torch.cuda.synchronize()
+        ref = cached_attention_reference(*args)
+        diff = (out.float() - ref.float()).abs()
+        err = diff.max().item()
+        atol, rtol = K5_TOL[dtype]
+        ok = bool((diff <= atol + rtol * ref.float().abs()).all())
+        ms, plain_ms, t = in_turns(lambda: cached_attention_reference(*args),
+                                   lambda: cached_attention(*args), 50)
+        mask = causal_mask(n_past, tq, c, "cuda")
+        kt, vt = k.transpose(-1, -2), v.transpose(-1, -2)
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, kt, vt, attn_mask=mask), 50)
+        g_ms = graph_ms(lambda: cached_attention(*args), 50)
+        # only the keys the mask lets through
+        c_eff, pairs = causal_keys(n_past, tq, c)
+        b_ms, by = bound_ms(nbytes(q, out) + 2 * bsz * h * 64 * c_eff * k.element_size(),
+                            4 * bsz * h * pairs * 64, dtype)
+        log(f"[decode-kernel] cached_attention {name} q ({bsz}, {h}, {tq}, 64) {str(dtype)[6:]} "
+            f"over {c} positions, n_past {n_past}: max_abs_err {err:.3e} (atol {atol:.0e}, "
+            f"rtol {rtol:.1e}); kernel {ms:.4f} ms ({t[1]:.4f}, {t[2]:.4f}), plain "
+            f"{plain_ms:.4f} ms ({t[0]:.4f}, {t[3]:.4f}), F.scaled_dot_product_attention "
+            f"{lib_ms:.4f} ms; kernel in a CUDA graph {g_ms:.4f} ms; bound {b_ms:.4f} ms "
+            f"({by}, {c_eff} of {c} positions seen); {card}")
+        if not ok:
+            raise AssertionError(f"cached_attention {name} disagrees with its plain version: "
+                                 f"max_abs_err {err}")
+        rows[f"k5-{name}"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                              "bound_ms": b_ms, "bound_by": by, "library_ms": lib_ms}
+        del q, kc, vc, out, ref, diff
+
+
+def _k6_cases(card: str, gen, rows: dict) -> None:
+    n_rows = BEAM_GROUPS * BEAM
+    cases = [("int8", _int8_beam_cache(gen, n_rows, 75),
+              torch.randint(0, n_rows, (n_rows,), device="cuda", generator=gen)),
+             ("bf16", [torch.randn((4 * BEAM, 32, 20, 64, 448), device="cuda",
+                                   generator=gen).to(torch.bfloat16) for _ in range(2)],
+              torch.randint(0, 4 * BEAM, (4 * BEAM,), device="cuda", generator=gen))]
+    for name, leaves, idx in cases:
+        if idx.unique().numel() == idx.numel():
+            raise AssertionError("the K6 case needs repeated rows")
+        got = beam_gather.permute_rows_multi(leaves, idx)
+        torch.cuda.synchronize()
+        want = beam_gather.permute_rows_reference(leaves, idx)
+        same = all(torch.equal(g, w) for g, w in zip(got, want))
+        ms, plain_ms, t = in_turns(lambda: beam_gather.permute_rows_reference(leaves, idx),
+                                   lambda: beam_gather.permute_rows_multi(leaves, idx), 10)
+        lib_ms = cuda_ms(lambda: [a.index_select(0, idx) for a in leaves], 10)
+        # each distinct source row read once, every output row written once
+        moved = nbytes(*got) * (1 + idx.unique().numel() / idx.numel()) + nbytes(idx)
+        b_ms, by = bound_ms(moved, 0, torch.bfloat16)
+        shapes = " + ".join(f"{tuple(a.shape)} {str(a.dtype)[6:]}" for a in leaves)
+        log(f"[decode-kernel] permute_rows_multi {name}: {shapes}, {idx.unique().numel()} "
+            f"distinct of {idx.numel()} rows: {'bit-exact' if same else 'DIFFERS'}; kernel "
+            f"{ms:.4f} ms ({t[1]:.4f}, {t[2]:.4f}), plain {plain_ms:.4f} ms ({t[0]:.4f}, "
+            f"{t[3]:.4f}), index_select per leaf {lib_ms:.4f} ms; bound {b_ms:.4f} ms ({by}, "
+            f"{moved / 1e9:.3f} GB); kernel {moved / (ms * 1e-3) / 1e9:.0f} GB/s; {card}")
+        if not same:
+            raise AssertionError(f"permute_rows_multi {name} differs from index_select")
+        rows[f"k6-{name}"] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                              "bound_ms": b_ms, "bound_by": by, "library_ms": lib_ms}
+        del leaves, got, want
+    torch.cuda.empty_cache()
+
+
+def _fork_src(n_forks: int) -> torch.Tensor:
+    """copy_src of cow_assign over 32 groups of 5 beams with ``n_forks``
+    forked rows spread over the groups: a group with f forks takes beam 0
+    f + 1 times and drops its last f beams."""
+    rows = []
+    for g in range(BEAM_GROUPS):
+        f = n_forks // BEAM_GROUPS + (g < n_forks % BEAM_GROUPS)
+        rows.append([0] * (f + 1) + list(range(1, BEAM - f)))
+    new_src = torch.tensor(rows, device="cuda")
+    phys = torch.arange(BEAM, device="cuda").repeat(BEAM_GROUPS, 1)
+    _, copy_src = cow_assign(phys, new_src, BEAM)
+    return (copy_src + torch.arange(BEAM_GROUPS, device="cuda")[:, None] * BEAM).reshape(-1)
+
+
+def _k7_cases(card: str, gen, rows: dict) -> None:
+    leaves = _int8_beam_cache(gen, BEAM_GROUPS * BEAM, 75)
+    row_bytes = sum(a[0].numel() * a.element_size() for a in leaves)
+    for n_forks in (1, 8, 32, 96):  # 96: phase 11's reading, ~96.5 forked rows a step
+        src = _fork_src(n_forks)
+        ar = torch.arange(src.numel(), device="cuda")
+        if int((src != ar).sum()) != n_forks:
+            raise AssertionError(f"cow_assign forked {int((src != ar).sum())} rows, "
+                                 f"expected {n_forks}")
+        before = [a.clone() for a in leaves]
+        want = beam_gather.cow_copy_rows_reference([a.clone() for a in leaves], src)
+        beam_gather.cow_copy_rows(leaves, src)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, w) for a, w in zip(leaves, want))
+        ident = src == ar
+        untouched = all(torch.equal(a[ident], b[ident]) for a, b in zip(leaves, before))
+        dst = ar[~ident]
+        srcs = src[dst]
+        ms, plain_ms, t = in_turns(lambda: beam_gather.cow_copy_rows_reference(leaves, src),
+                                   lambda: beam_gather.cow_copy_rows(leaves, src), 20)
+        lib_ms = cuda_ms(lambda: [a.index_copy_(0, dst, a.index_select(0, srcs))
+                                  for a in leaves], 20)
+        g_ms = graph_ms(lambda: beam_gather.cow_copy_rows(leaves, src), 20)
+        # each forked row written once, each distinct source row read once
+        moved = (n_forks + srcs.unique().numel()) * row_bytes + nbytes(src)
+        b_ms, by = bound_ms(moved, 0, torch.bfloat16)
+        log(f"[decode-kernel] cow_copy_rows int8 cache (160 rows, 4 leaves, {row_bytes / 1e6:.2f} "
+            f"MB a row), {n_forks} forked rows: {'bit-exact' if same else 'DIFFERS'}, identity "
+            f"rows {'untouched' if untouched else 'CHANGED'}; kernel {ms:.4f} ms ({t[1]:.4f}, "
+            f"{t[2]:.4f}), plain {plain_ms:.4f} ms ({t[0]:.4f}, {t[3]:.4f}), index_copy_ per "
+            f"leaf {lib_ms:.4f} ms; kernel in a CUDA graph {g_ms:.4f} ms; bound {b_ms:.4f} ms "
+            f"({by}); {card}")
+        if not (same and untouched):
+            raise AssertionError(f"cow_copy_rows with {n_forks} forks differs from its plain "
+                                 f"version or touched an identity row")
+        rows[f"k7-{n_forks}"] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                                 "bound_ms": b_ms, "bound_by": by, "library_ms": lib_ms}
+        del before, want
+    del leaves
+    torch.cuda.empty_cache()
+
+
+def phase_decode_kernels(card: str) -> dict:
+    """K5, K6 and K7 against their plain versions; returns a row per case."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    rows = {}
+    _k5_cases(card, gen, rows)
+    _k6_cases(card, gen, rows)
+    _k7_cases(card, gen, rows)
+    return rows
+
+
+def phase_beam_parity(card: str) -> None:
+    """Beam 3 on phase 4's f32 checkpoint, both routes, CPU vs card."""
+    cfg, path = tiny_checkpoint()
+    models = {dev: load_model(str(path), device=dev, dtype=torch.float32)
+              for dev in ("cpu", "cuda")}
+    audios = [synthetic_audio(SAMPLE_RATE * s, seed=s) for s in (7, 30)]
+    options = DecodingOptions(beam_size=3, sample_len=32, without_timestamps=False)
+    tokens = {}
+    with torch.inference_mode():
+        mel = BatchTranscriber(models["cpu"], 2)._mel_batch(audios)
+        for dev, m in models.items():
+            enc = m.encoder(mel.to(dev))
+            _zero_launches()
+            for route in ("host", "device"):
+                res = decode_full(m.decoder, m.vocab, enc.cross_k, enc.cross_v, options,
+                                  use_device_loop=route == "device")
+                tokens[dev, route] = [r.tokens for r in res]
+            n = _read_launches()
+    for route in ("host", "device"):
+        for i, (c, g) in enumerate(zip(tokens["cpu", route], tokens["cuda", route])):
+            log(f"[beam-parity] {route} beam, stream {i}: {len(c)} tokens on cpu, {len(g)} on "
+                f"cuda, {'identical' if c == g else 'parting at ' + str(_first_divergence(c, g))}")
+            if c != g:
+                raise AssertionError(f"{route} beam tokens differ between cpu and cuda")
+    if tokens["cuda", "device"] != tokens["cuda", "host"]:
+        raise AssertionError("on the card the device beam differs from the host beam")
+    if min(n["k5"], n["k6"], n["k7"]) == 0:
+        raise AssertionError(f"a decode kernel was not launched on the card: {n}")
+    log(f"[beam-parity] beam 3, timestamps: tokens identical on cpu and cuda for both routes, "
+        f"and the device beam equals the host beam; launches on cuda {n}; {card}")
+
+
+def phase_int8_beam_main_path(card: str, served) -> dict:
+    """make_serving_step at batch 32, beam 5, int8, twice: the first run
+    instrumented and not timed, the second as served and timed. Returns the
+    second run's launches."""
+    cfg = served.config
+    L = cfg.n_text_layer
+    step = make_serving_step(served, BEAM_GROUPS, 64, "int8", beam_size=BEAM)
+    audio = synthetic_audio(SAMPLE_RATE * 30, seed=100)
+    # The first run wraps the decoder's K4 name to record the cross calls' q
+    # shapes, and the device beam's K7 name to sum the forked rows on the
+    # device; both hand on to the real wrappers.
+    from whisper_tpu_torch.decoding import device_beam
+    real_k4, real_k7 = decoder_module.cross_attention_int8, device_beam.cow_copy_rows
+    cross_shapes, forks = set(), torch.zeros((), dtype=torch.long, device="cuda")
+
+    def k4_spy(q, *args, n_past=None):
+        if n_past is None:
+            cross_shapes.add(tuple(q.shape))
+        return real_k4(q, *args, n_past=n_past)
+
+    def k7_spy(leaves, src):
+        forks.add_((src != torch.arange(src.numel(), device=src.device)).sum())
+        return real_k7(leaves, src)
+
+    for run in (1, 2):
+        instrumented = run == 1
+        served.timers.totals.clear()
+        served.timers.counts.clear()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_launches()
+        if instrumented:
+            decoder_module.cross_attention_int8, device_beam.cow_copy_rows = k4_spy, k7_spy
+        try:
+            t0 = time.perf_counter()
+            fin_toks, fin_count = step(audio)
+            wall = time.perf_counter() - t0
+        finally:
+            decoder_module.cross_attention_int8, device_beam.cow_copy_rows = real_k4, real_k7
+        n = _read_launches()
+        peak = torch.cuda.max_memory_allocated()
+        tm = served.timers.totals
+        forwards = n["k4_self"] // L
+        head = (f"[int8-beam] run {run}: {BEAM_GROUPS} windows x {BEAM} beams (160 rows) x 30 s, "
+                f"int8 as phase 8, 64 tokens, {forwards} forwards, {n['k7']} decode steps")
+        if instrumented:
+            log(f"{head}, instrumented (times not kept): forked rows {int(forks)} "
+                f"({int(forks) / max(n['k7'], 1):.2f} a step); cross q shapes "
+                f"{sorted(cross_shapes)}; launches {n}")
+            if {(s[0], s[2]) for s in cross_shapes} != {(BEAM_GROUPS, 3 * BEAM),
+                                                        (BEAM_GROUPS, BEAM)}:
+                raise AssertionError(f"cross-attention q shapes {cross_shapes}: the cross "
+                                     f"memory is not read once per group")
+        else:
+            log(f"{head}, as served: mel {tm['mel'] * 1e3:.1f} ms, encode "
+                f"{tm['encode'] * 1e3:.1f} ms, decode {tm['decode'] * 1e3:.1f} ms, total "
+                f"{wall * 1e3:.1f} ms; fin_count {fin_count.tolist()[:8]}...; peak "
+                f"{peak / 1e9:.2f} GB; launches {n}; {card}")
+        if not (forwards >= 2 and n["k4_self"] == forwards * L
+                and n["k4"] - n["k4_self"] == forwards * L):
+            raise AssertionError(f"K4 launched {n['k4']} times ({n['k4_self']} self), not "
+                                 f"n_text_layer cross + n_text_layer self per forward")
+        if n["k7"] != forwards - 1:
+            raise AssertionError(f"cow_copy_rows launched {n['k7']} times over {forwards - 1} "
+                                 f"decode steps, not once a step")
+        if fin_toks.shape != (BEAM_GROUPS, BEAM, 64) or not (
+                (fin_count >= 0) & (fin_count <= BEAM)).all():
+            raise AssertionError(f"bad output {tuple(fin_toks.shape)}, {fin_count}")
+        if not ((fin_toks >= 0) & (fin_toks < cfg.n_vocab)).all():
+            raise AssertionError("token out of the vocab")
+    return n
+
+
+def phase_host_beam(card: str, model) -> dict:
+    """BatchTranscriber with beam 5 over 4 clips, bf16, twice: the first run
+    instrumented and not timed, the second as served and timed. Returns the
+    second run's launches."""
+    cfg = model.config
+    L = cfg.n_text_layer
+    audios = [synthetic_audio(SAMPLE_RATE * 30, seed=200 + i) for i in range(4)]
+    bt = BatchTranscriber(model, 4, options=DecodingOptions(beam_size=BEAM, sample_len=32))
+    # The first run counts the steps whose beam sources moved, from the beam
+    # decoder's own output: the host loop must reorder the cache (one K6) at
+    # each of them.
+    real_update, moved = BeamSearchDecoder.update, [0]
+
+    def update_spy(self, tokens, logits, sum_logprobs):
+        out = real_update(self, tokens, logits, sum_logprobs)
+        moved[0] += not np.array_equal(out[2], np.arange(len(out[2])))
+        return out
+
+    for run in (1, 2):
+        instrumented = run == 1
+        model.timers.totals.clear()
+        model.timers.counts.clear()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_launches()
+        if instrumented:
+            BeamSearchDecoder.update = update_spy
+        try:
+            t0 = time.perf_counter()
+            results = bt.transcribe_batch(audios)
+            wall = time.perf_counter() - t0
+        finally:
+            BeamSearchDecoder.update = real_update
+        n = _read_launches()
+        tm = model.timers.totals
+        head = (f"[host-beam] run {run}: 4 x 30 s, bf16, beam 5 (20 rows), timestamps, "
+                f"sample_len 32, {n['k5'] // L} forwards, {n['k6']} reorders")
+        if instrumented:
+            log(f"{head}, instrumented (times not kept): {moved[0]} steps whose beam sources "
+                f"moved; launches {n}")
+            if n["k6"] != moved[0] or moved[0] == 0:
+                raise AssertionError(f"permute_rows_multi launched {n['k6']} times for "
+                                     f"{moved[0]} steps whose beam sources moved")
+        else:
+            log(f"{head}, as served: mel {tm['mel'] * 1e3:.1f} ms, encode "
+                f"{tm['encode'] * 1e3:.1f} ms, decode {tm['decode'] * 1e3:.1f} ms, total "
+                f"{wall * 1e3:.1f} ms; {sum(len(r.tokens) for r in results)} tokens; peak "
+                f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches {n}; {card}")
+            if n["k6"] == 0:
+                raise AssertionError("permute_rows_multi was not launched")
+        if n["k1"] != cfg.n_audio_layer or not (n["k5"] and n["k5"] % L == 0):
+            raise AssertionError(f"launches {n}: K1 not once per encoder layer or K5 not "
+                                 f"n_text_layer per forward")
+        for r in results:
+            if not all(0 <= t < cfg.n_vocab for t in r.tokens) or not math.isfinite(
+                    r.avg_logprob):
+                raise AssertionError(f"bad result {r}")
+    log(f"[host-beam] stream 0: {results[0].tokens[:12]}... avg_logprob "
+        f"{results[0].avg_logprob:.4f}")
+    return n
 
 
 def main() -> None:
@@ -618,13 +1044,17 @@ def main() -> None:
     phase_build()
     k1 = phase_kernel(card)
     phase_parity(card)
-    k1_launches, model = phase_main_path(card)
+    bf16, model = phase_main_path(card)
     rows = phase_int8_kernels(card)
     phase_int8_parity(card)
-    n = phase_int8_main_path(card, model)
+    n, served = phase_int8_main_path(card, model)
+    rows.update(phase_decode_kernels(card))
+    phase_beam_parity(card)
+    beam = phase_int8_beam_main_path(card, served)
+    host = phase_host_beam(card, model)
     src, tpu = "whisper_tpu_torch/csrc/", "whisper_tpu/kernels/"
     entries = [
-        ("flash_attention", "flash_attention.cu", "flash_attention.py:141", k1_launches, k1),
+        ("flash_attention", "flash_attention.cu", "flash_attention.py:141", bf16["k1"], k1),
         ("fused_quant.act_quant", "fused_quant.cu", "fused_quant.py:113", n["act"], rows["act"]),
         ("fused_quant.ln_quant", "fused_quant.cu", "fused_quant.py:113", n["ln"], rows["ln"]),
         ("fused_quant.gelu_quant", "fused_quant.cu", "fused_quant.py:113", n["gelu"],
@@ -633,6 +1063,12 @@ def main() -> None:
          n["k4"] - n["k4_self"], rows["cross"]),
         ("cross_attention_int8.self", "cross_attention_int8.cu", "cross_attention_int8.py:109",
          n["k4_self"], rows["self"]),
+        # K5 on both bf16 paths: phase 5's greedy batch and phase 12's host beam
+        ("cached_attention", "decode_attention.cu", "decode_attention.py:109",
+         bf16["k5"] + host["k5"], rows["k5-b8"]),
+        ("permute_rows_multi", "beam_gather.cu", "beam_gather.py:159", host["k6"],
+         rows["k6-bf16"]),  # the host beam's float cache
+        ("cow_copy_rows", "beam_gather.cu", "beam_gather.py:280", beam["k7"], rows["k7-96"]),
     ]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src + source, "replaces": tpu + replaces,

@@ -1,0 +1,148 @@
+"""The decode kernels' plain versions against the JAX package's Pallas
+kernels on the CPU: K5 (``cached_attention``, interpret mode), K6
+(``permute_rows_multi``, interpret mode) and K7 (``cow_copy_rows``, its
+CPU route). On CPU tensors the port's wrappers take these plain versions
+and launch nothing; chip_smoke.py holds the CUDA kernels to them on the card.
+
+Tolerances: K5 at f32 within 1e-5 (both take f32 scores, softmax and PV
+sums; only the order of the sums differs, over at most 40 keys of unit-scale
+inputs); K6 and K7 copy bytes, so exact.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from whisper_tpu.decoding.device_beam import cow_assign as jax_cow_assign
+from whisper_tpu.kernels.beam_gather import cow_copy_rows as jax_cow_copy_rows
+from whisper_tpu.kernels.beam_gather import permute_rows_multi as jax_permute_rows_multi
+from whisper_tpu.kernels.decode_attention import cached_attention as jax_cached_attention
+from whisper_tpu_torch.kernels import beam_gather as bg
+from whisper_tpu_torch.kernels.decode_attention import (cached_attention,
+                                                        cached_attention_reference)
+from whisper_tpu_torch.model.decoder import KVCache
+from whisper_tpu_torch.model.quant import QuantKV
+
+
+@pytest.mark.parametrize("T,n_past", [(1, 0), (1, 21), (3, 9), (32, 0)])
+def test_cached_attention_matches_pallas_interpret(T, n_past):
+    """One layer of the port's (B, L, H, D, C) cache, read in place; JAX's
+    kernel takes the same cache transposed to (L, B, H, D, C)."""
+    rng = np.random.default_rng(T * 100 + n_past)
+    B, L, H, D, C, layer = 3, 2, 2, 32, 40, 1
+    q = rng.standard_normal((B, H, T, D)).astype(np.float32)
+    ck, cv = (rng.standard_normal((B, L, H, D, C)).astype(np.float32) for _ in range(2))
+    ref = jax_cached_attention(jnp.asarray(q), jnp.asarray(ck.transpose(1, 0, 2, 3, 4)),
+                               jnp.asarray(cv.transpose(1, 0, 2, 3, 4)), layer, n_past,
+                               interpret=True)
+    tk, tv = torch.from_numpy(ck), torch.from_numpy(cv)
+    launches = cached_attention.launches
+    out = cached_attention(torch.from_numpy(q), tk[:, layer], tv[:, layer], n_past)
+    assert cached_attention.launches == launches  # CPU: the plain version
+    assert out.dtype == torch.float32 and out.shape == (B, H, T, D)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5, rtol=0)
+
+
+def test_cached_attention_rounds_p_to_the_cache_dtype():
+    """bf16 cache: the normalised probabilities round to bf16 before the PV
+    sum, as the JAX decoder's _kvmajor_sdpa does (the Pallas kernel keeps
+    them in f32); the output takes q's dtype."""
+    rng = np.random.default_rng(3)
+    q = torch.from_numpy(rng.standard_normal((2, 2, 1, 32)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((2, 2, 32, 24)).astype(np.float32))
+            .to(torch.bfloat16) for _ in range(2))
+    out = cached_attention_reference(q, k, v, n_past=17)
+    logits = torch.matmul(q, k.float()) * 32 ** -0.5
+    logits[..., 18:] = -1e30
+    p = torch.softmax(logits, dim=-1).to(torch.bfloat16).float()
+    torch.testing.assert_close(out, torch.matmul(p, v.float().transpose(-1, -2)),
+                               atol=0, rtol=0)
+    assert cached_attention_reference(q.to(torch.bfloat16), k, v, 17).dtype == torch.bfloat16
+
+
+def _cache_leaves(rng, B: int):
+    """int8 codes (B, L, H, D, C), f32 scales (B, L, H, C) and a float leaf
+    of another trailing shape (JAX's kernel needs the leaves to share L)."""
+    return [rng.integers(-127, 128, size=(B, 2, 2, 8, 5)).astype(np.int8),
+            rng.random((B, 2, 2, 5)).astype(np.float32),
+            rng.standard_normal((B, 2, 4, 3)).astype(np.float32)]
+
+
+def test_permute_rows_multi_matches_pallas_interpret():
+    rng = np.random.default_rng(0)
+    B = 6
+    leaves = _cache_leaves(rng, B)
+    rows = np.array([3, 3, 0, 5, 1, 3])  # repeated sources
+    ref = jax_permute_rows_multi(
+        [jnp.asarray(leaves[0]), jnp.asarray(leaves[1]), jnp.asarray(leaves[2], jnp.bfloat16)],
+        jnp.asarray(rows, jnp.int32), interpret=True)
+    tl = [torch.from_numpy(leaves[0]), torch.from_numpy(leaves[1]),
+          torch.from_numpy(leaves[2]).to(torch.bfloat16)]
+    out = bg.permute_rows_multi(tl, torch.from_numpy(rows))
+    assert bg.permute_rows_multi.launches == 0
+    for o, r, a in zip(out, ref, tl):
+        assert o.dtype == a.dtype and o.shape == a.shape
+        np.testing.assert_array_equal(o.float().numpy(), np.asarray(r, np.float32))
+    np.testing.assert_array_equal(bg.permute_rows(tl[0], torch.from_numpy(rows)).numpy(),
+                                  np.asarray(ref[0]))
+
+
+def test_permute_cache_rows_keeps_the_cache_structure():
+    rng = np.random.default_rng(1)
+    codes, scales, _ = _cache_leaves(rng, 4)
+    cache = KVCache(QuantKV(torch.from_numpy(codes), torch.from_numpy(scales)),
+                    QuantKV(torch.from_numpy(-codes), torch.from_numpy(2 * scales)))
+    rows = torch.tensor([2, 2, 1, 0])
+    out = bg.permute_cache_rows(cache, rows)
+    assert isinstance(out, KVCache) and isinstance(out.v, QuantKV)
+    torch.testing.assert_close(out.v.data, cache.v.data[rows])
+    torch.testing.assert_close(out.k.scale, cache.k.scale[rows])
+    flat = KVCache(torch.from_numpy(scales), torch.from_numpy(3 * scales))
+    torch.testing.assert_close(bg.permute_cache_rows(flat, rows).v, flat.v[rows])
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_cow_copy_rows_matches_jax_in_place(seed):
+    """A ``src`` made by JAX's cow_assign from random beam sources: the
+    plain version equals JAX's cow_copy_rows (its CPU route, a gather), and
+    writes into the leaves it was given."""
+    rng = np.random.default_rng(seed)
+    G, k = 3, 4
+    phys = np.stack([rng.permutation(k) for _ in range(G)]).astype(np.int32)
+    new_src = rng.integers(0, k, size=(G, k)).astype(np.int32)
+    _, copy_src = jax_cow_assign(jnp.asarray(phys), jnp.asarray(new_src), k)
+    src = (np.asarray(copy_src) + (np.arange(G) * k)[:, None]).reshape(-1)
+    assert (src != np.arange(G * k)).any()
+    leaves = _cache_leaves(rng, G * k)[:2]
+    ref = jax_cow_copy_rows(tuple(jnp.asarray(a) for a in leaves), jnp.asarray(src, jnp.int32))
+    tl = [torch.from_numpy(a.copy()) for a in leaves]
+    ptrs = [a.data_ptr() for a in tl]
+    out = bg.cow_copy_rows(tl, torch.from_numpy(src))
+    assert bg.cow_copy_rows.launches == 0
+    assert [a.data_ptr() for a in out] == ptrs
+    for a, r in zip(tl, ref):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(r))
+
+
+def test_cow_copy_rows_reference_refuses_a_source_that_is_a_destination():
+    a = torch.arange(12.0).reshape(4, 3)
+    with pytest.raises(ValueError, match="destination"):
+        bg.cow_copy_rows([a], torch.tensor([0, 0, 1, 3]))  # row 1 is read and written
+    bg.cow_copy_rows([a], torch.tensor([0, 0, 2, 2]))
+    torch.testing.assert_close(a[1], a[0])
+    torch.testing.assert_close(a[3], a[2])
+
+
+@pytest.mark.parametrize("wrapper", ["permute_rows_multi", "cow_copy_rows"])
+def test_row_copies_refuse_an_index_on_another_device(wrapper):
+    """The route follows the leaves' device: an index on the CPU beside
+    leaves elsewhere (here the meta device, standing for the card) raises
+    and does not fall back to the plain version."""
+    fn = getattr(bg, wrapper)
+    idx = torch.tensor([0, 0, 2, 3])
+    with pytest.raises(ValueError, match="first leaf on meta"):
+        fn([torch.empty(4, 3, device="meta")], idx)
+    with pytest.raises(ValueError, match="first leaf on cpu"):
+        fn([torch.zeros(4, 3)], idx.to("meta"))
+    assert fn.launches == 0

@@ -178,7 +178,5 @@ def test_decode_full_takes_an_int8_cross_memory(models):
 
 def test_serving_step_refuses_what_is_not_ported(models):
     _, model, _ = models
-    with pytest.raises(NotImplementedError):
-        make_serving_step(model, 2, 8, "int8", beam_size=2)
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError):  # beam_size is ported: test_torch_beam.py
         make_serving_step(model, 2, 8, "float16")

@@ -19,7 +19,9 @@
 // it is a memory-bound stream (7.9 GB of cross memory per large-v3 step at
 // batch 64). The TPU kernel dequantized whole K/V blocks in VMEM. Here one
 // block of 256 threads owns one (b, h) and up to ROWS query rows and reads
-// each K and V byte once, converting on read:
+// each K and V byte its rows can see once, converting on read (in the self
+// cache the keys past the last row's causal mask contribute exp(-1e30 - max)
+// = 0 and are skipped, which leaves every sum as it was):
 //   1. each thread takes key columns c (consecutive across the warp, so the
 //      int8 rows of kv-major K coalesce), dots them with the ROWS query rows
 //      held in shared memory (broadcast reads), and writes the scaled, masked
@@ -64,6 +66,8 @@ attention_int8_kernel(const T* __restrict__ q, const int8_t* __restrict__ k8,
   const int b = bh / n_head, h = bh % n_head;
   const int t0 = blockIdx.y * ROWS;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  // keys any of this block's rows can see
+  const int c_hi = n_past < 0 ? c_len : min(c_len, n_past + min(t0 + ROWS, tq));
 
   const int8_t* kb = k8 + b * data_bstride + (long long)h * D * c_len;
   const int8_t* vb = v8 + b * data_bstride + (long long)h * D * c_len;
@@ -78,7 +82,7 @@ attention_int8_kernel(const T* __restrict__ q, const int8_t* __restrict__ k8,
   __syncthreads();
 
   // 1. logits
-  for (int c = threadIdx.x; c < c_len; c += THREADS) {
+  for (int c = threadIdx.x; c < c_hi; c += THREADS) {
     float acc[ROWS];
 #pragma unroll
     for (int r = 0; r < ROWS; ++r) acc[r] = 0.f;
@@ -101,18 +105,18 @@ attention_int8_kernel(const T* __restrict__ q, const int8_t* __restrict__ k8,
   for (int r = warp; r < ROWS; r += WARPS) {
     float* row = lg + r * c_len;
     float m = MASKED;
-    for (int c = lane; c < c_len; c += 32) m = fmaxf(m, row[c]);
+    for (int c = lane; c < c_hi; c += 32) m = fmaxf(m, row[c]);
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
     float s = 0.f;
-    for (int c = lane; c < c_len; c += 32) {
+    for (int c = lane; c < c_hi; c += 32) {
       const float e = expf(row[c] - m);
       row[c] = e;
       s += e;
     }
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-    for (int c = lane; c < c_len; c += 32) {
+    for (int c = lane; c < c_hi; c += 32) {
       row[c] = __bfloat162float(__float2bfloat16_rn((row[c] / s) * vsb[c]));
     }
   }
@@ -124,7 +128,7 @@ attention_int8_kernel(const T* __restrict__ q, const int8_t* __restrict__ k8,
     float acc[ROWS];
 #pragma unroll
     for (int r = 0; r < ROWS; ++r) acc[r] = 0.f;
-    for (int c = lane; c < c_len; c += 32) {
+    for (int c = lane; c < c_hi; c += 32) {
       const float vv = static_cast<float>(vr[c]);
 #pragma unroll
       for (int r = 0; r < ROWS; ++r) acc[r] = fmaf(lg[r * c_len + c], vv, acc[r]);

@@ -15,8 +15,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from whisper_tpu.io.vocab import device_special_ids
-
+from ..io.vocab import device_special_ids
 from ..kernels.ops import NEG
 from ..model.decoder import KVCache, TextDecoder, decode_step
 
@@ -145,7 +144,7 @@ def build_masks(vocab, device: torch.device | str,
 
     ``suppress_tokens`` follows openai's spec (-1 expands to the non-speech
     tokens; a falsy spec suppresses nothing, as the host filters do)."""
-    from whisper_tpu.decoding.rules import build_suppress_list
+    from .rules import build_suppress_list
 
     v = vocab.n_vocab
     sup = np.zeros(v, bool)

@@ -1,10 +1,17 @@
-"""Decoding options, initial tokens and the greedy device decode.
+"""DecodingTask: one pass of the decoder over encoded audio windows.
 
-Port of the device-greedy part of ``whisper_tpu/decoding/task.py``:
-``DecodingOptions``, the 32-token prefill bucket, openai's initial-token
-construction, and ``decode_full`` through ``decode_segment_device``. Beam
-search, ``best_of`` groups and the host-orchestrated loop are not ported yet
-and raise ``NotImplementedError``.
+Port of ``whisper_tpu/decoding/task.py``: ``DecodingOptions``, the 32-token
+prefill bucket, openai's initial-token construction, the host-orchestrated
+loop (``DecodingTask.run``: logit filters, greedy or beam bookkeeping and
+the ranker on host numpy, one device forward per token, the beam cache
+reordered by the row-gather kernel K6), and ``decode_full``'s routing to
+the device loops (greedy, ``decoding.device_loop``; beam,
+``decoding.device_beam``). Beam rows share their group's cross memory: the
+decoder folds the beam axis into the query when the cross batch is smaller.
+
+Not ported yet (``NotImplementedError``): ``best_of`` groups, the device
+top-k step (``use_topk_device``, JAX's ``topk_step.py``) and
+``detect_language``.
 """
 
 from __future__ import annotations
@@ -15,11 +22,14 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from whisper_tpu.config import WhisperConfig
-from whisper_tpu.decoding.result import DecodingResult, compression_ratio
-from whisper_tpu.io.vocab import WhisperVocab
-
-from ..model.decoder import TextDecoder, init_cache
+from ..config import WhisperConfig
+from ..io.vocab import WhisperVocab
+from ..kernels.beam_gather import permute_cache_rows
+from ..model.decoder import TextDecoder, decode_step, init_cache
+from .result import DecodingResult, compression_ratio
+from .rules import (ApplyTimestampRules, SuppressBlank, SuppressTokens, build_suppress_list,
+                    log_softmax)
+from .sequence import BeamSearchDecoder, GreedyDecoder, MaximumLikelihoodRanker
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,13 +76,16 @@ def _pad_to_bucket(tokens: np.ndarray) -> Tuple[np.ndarray, int]:
 
 
 class DecodingTask:
-    """The option checks and token layout of openai's ``DecodingTask``
-    (the host decode loop itself is not ported)."""
+    """openai's ``DecodingTask``: option checks, token layout, logit
+    filters, the sequence decoder (greedy or beam) and the ranker, and the
+    host loop ``run`` over ``text_decoder`` (the model's ``TextDecoder``)."""
 
-    def __init__(self, config: WhisperConfig, vocab: WhisperVocab, options: DecodingOptions):
+    def __init__(self, config: WhisperConfig, vocab: WhisperVocab, options: DecodingOptions,
+                 text_decoder: Optional[TextDecoder] = None):
         self.config = config
         self.vocab = vocab
         self.options = options
+        self.text_decoder = text_decoder  # used by run()
         # option-compatibility contract (openai decoding.py _verify_options)
         if options.beam_size is not None and options.best_of is not None:
             raise ValueError("beam_size and best_of can't be given together")
@@ -82,11 +95,29 @@ class DecodingTask:
             raise ValueError("best_of with greedy sampling is not compatible")
         if options.patience is not None and options.beam_size is None:
             raise ValueError("patience requires beam_size to be given")
+        self.n_group = options.beam_size or options.best_of or 1
         self.sample_len = options.sample_len or config.n_text_ctx // 2
         self.sot_sequence = self._sot_sequence()
         self.initial_tokens = self._initial_tokens()
         self.sample_begin = len(self.initial_tokens)
         self.sot_index = self.initial_tokens.index(vocab.token_sot)
+
+        if options.beam_size is not None:
+            self.decoder = BeamSearchDecoder(options.beam_size, vocab.token_eot, options.patience)
+        else:
+            self.decoder = GreedyDecoder(options.temperature, vocab.token_eot, options.seed)
+        self.ranker = MaximumLikelihoodRanker(options.length_penalty)
+
+        self.filters = []
+        if options.suppress_blank:
+            self.filters.append(SuppressBlank(vocab, self.sample_begin))
+        if options.suppress_tokens:
+            self.filters.append(SuppressTokens(build_suppress_list(vocab, options.suppress_tokens)))
+        if not options.without_timestamps:
+            max_initial_index = None
+            if options.max_initial_timestamp is not None:
+                max_initial_index = round(options.max_initial_timestamp / 0.02)
+            self.filters.append(ApplyTimestampRules(vocab, self.sample_begin, max_initial_index))
 
     def _sot_sequence(self) -> List[int]:
         v = self.vocab
@@ -111,15 +142,108 @@ class DecodingTask:
                       + prompt[-(self.config.n_text_ctx // 2 - 1):] + tokens)
         return tokens
 
+    def run(self, cross_k, cross_v, use_topk_device: bool = False) -> List[DecodingResult]:
+        """Decode the windows of the cross memory (L, n_audio, H, D, Ta),
+        float or ``QuantKV``, one result per window. Rows are
+        group-contiguous (n_audio * n_group of them) and share their
+        window's cross memory."""
+        if use_topk_device:
+            raise NotImplementedError("the device top-k beam step (topk_step.py) is not "
+                                      "ported yet")
+        if self.text_decoder is None:
+            raise ValueError("DecodingTask.run needs the model's TextDecoder")
+        cfg, v = self.config, self.vocab
+        n_audio = _cross_batch(cross_k)
+        n_seq = n_audio * self.n_group
+        device = getattr(cross_k, "data", cross_k).device
+        beam = isinstance(self.decoder, BeamSearchDecoder)
+
+        self.decoder.reset()
+        tokens = np.tile(np.array(self.initial_tokens, np.int64), (n_seq, 1))
+        cache = init_cache(cfg, n_seq, _cache_dtype(cross_k), device)
+
+        # Prefill (bucketed), one forward for the whole prompt. Only two
+        # positions of the (n_seq, P, V) logits are read (SOT for the
+        # no-speech probability, true_len - 1 to seed sampling): slice them
+        # on the device before the fetch.
+        padded, true_len = _pad_to_bucket(tokens)
+        logits_all, cache = decode_step(self.text_decoder, torch.from_numpy(padded).to(device),
+                                        0, cache, cross_k, cross_v)
+        two = logits_all[:, [self.sot_index, true_len - 1]].float().cpu().numpy()
+        no_speech_probs = np.exp(log_softmax(two[:, 0]))[:, v.token_nosp]
+        logits = two[:, 1]
+        n_past = true_len
+
+        sum_logprobs = np.zeros(n_seq, dtype=np.float64)
+        for _ in range(self.sample_len):
+            filt = logits.copy()
+            for f in self.filters:
+                f(filt, tokens)
+            if beam:
+                tokens, completed, sources = self.decoder.update(tokens, filt, sum_logprobs)
+                if not np.array_equal(sources, np.arange(n_seq)):
+                    cache = permute_cache_rows(cache, torch.from_numpy(sources).to(device))
+            else:
+                tokens, completed = self.decoder.update(tokens, filt, sum_logprobs)
+            if completed or tokens.shape[-1] > cfg.n_text_ctx:
+                break
+            next_tok = torch.from_numpy(tokens[:, -1:]).to(device)
+            lg, cache = decode_step(self.text_decoder, next_tok, n_past, cache, cross_k,
+                                    cross_v)
+            logits = lg[:, 0].float().cpu().numpy()
+            n_past += 1
+
+        # Finalize and rank.
+        final_tokens, final_logprobs = self.decoder.finalize(tokens, sum_logprobs)
+        if beam:
+            grouped_tokens = [[seq[self.sample_begin:_eot_index(seq, v.token_eot)]
+                               for seq in group] for group in final_tokens]
+            grouped_logprobs = final_logprobs
+        else:
+            grouped_tokens, grouped_logprobs = [], []
+            for i in range(n_audio):
+                rows = range(i * self.n_group, (i + 1) * self.n_group)
+                seqs = [final_tokens[r].tolist() for r in rows]
+                grouped_tokens.append([s[self.sample_begin:_eot_index(s, v.token_eot)]
+                                       for s in seqs])
+                grouped_logprobs.append([final_logprobs[r] for r in rows])
+
+        selected = self.ranker.rank(grouped_tokens, grouped_logprobs)
+        results = []
+        for i, j in enumerate(selected):
+            toks = [int(t) for t in grouped_tokens[i][j]]
+            text = v.decode(toks).strip()
+            results.append(DecodingResult(
+                tokens=toks, text=text,
+                avg_logprob=float(grouped_logprobs[i][j] / (len(toks) + 1)),
+                no_speech_prob=float(no_speech_probs[i * self.n_group]),
+                temperature=self.options.temperature,
+                compression_ratio=compression_ratio(text),
+            ))
+        return results
+
+
+def _eot_index(seq: List[int], eot: int) -> int:
+    return seq.index(eot) if eot in seq else len(seq)
+
 
 def decode_full(decoder: TextDecoder, vocab: WhisperVocab, cross_k, cross_v,
-                options: DecodingOptions) -> List[DecodingResult]:
+                options: DecodingOptions, use_device_loop: bool = True) -> List[DecodingResult]:
     """Decode encoded windows (cross memory (L, B, H, D, Ta), float or
-    ``QuantKV``) greedily, or by sampling at ``options.temperature``, one
-    result per window."""
-    if options.beam_size is not None or (options.best_of or 1) != 1:
-        raise NotImplementedError("beam search and best_of are not ported yet")
-    return _decode_full_device(decoder, vocab, cross_k, cross_v, options)
+    ``QuantKV``) with ``options``, one result per window.
+
+    ``use_device_loop`` routes greedy/temperature decoding through the device
+    loop (``decoding.device_loop``) and beam search without ``patience``
+    through the device beam (``decoding.device_beam``); otherwise the host
+    loop (``DecodingTask.run``) decodes, as JAX's ``decode_full`` routes."""
+    if (options.best_of or 1) != 1:
+        raise NotImplementedError("best_of groups are not ported yet")
+    if use_device_loop and options.beam_size is None:
+        return _decode_full_device(decoder, vocab, cross_k, cross_v, options)
+    if use_device_loop and options.patience is None:
+        return _decode_full_device_beam(decoder, vocab, cross_k, cross_v, options)
+    task = DecodingTask(decoder.cfg, vocab, options, decoder)
+    return task.run(cross_k, cross_v, use_topk_device=use_device_loop)
 
 
 def _device_decode_prologue(config: WhisperConfig, vocab: WhisperVocab,
@@ -183,3 +307,53 @@ def _decode_full_device(decoder: TextDecoder, vocab: WhisperVocab, cross_k, cros
         generator=generator,
     )
     return _greedy_device_results(toks, lengths, sum_lp, nosp, vocab, options.temperature)
+
+
+def _decode_full_device_beam(decoder: TextDecoder, vocab: WhisperVocab, cross_k, cross_v,
+                             options: DecodingOptions) -> List[DecodingResult]:
+    """Beam search through ``device_beam.beam_decode_device``, with openai's
+    finalize (pad with in-flight beams by score) and the ranker."""
+    from .device_beam import beam_decode_device
+
+    config = decoder.cfg
+    k = options.beam_size
+    n_audio = _cross_batch(cross_k)
+    device = getattr(cross_k, "data", cross_k).device
+    (task, padded, true_len, sup_mask, blank_mask, max_initial_index,
+     sample_len) = _device_decode_prologue(config, vocab, options, n_audio * k, device)
+    cache = init_cache(config, n_audio * k, dtype=_cache_dtype(cross_k), device=device,
+                       ctx=padded.shape[1] + sample_len + 8)
+    (act_toks, act_lp, fin_toks, fin_scores, fin_len, fin_count, steps,
+     nosp) = beam_decode_device(
+        decoder, torch.from_numpy(padded).to(device), true_len, task.sot_index, cache,
+        cross_k, cross_v, sup_mask, blank_mask, beam_size=k, sample_len=sample_len,
+        use_timestamps=not options.without_timestamps, max_initial_index=max_initial_index)
+    act_toks, act_lp, fin_toks, fin_scores, fin_len, fin_count, nosp = (
+        t.cpu().numpy() for t in (act_toks, act_lp, fin_toks, fin_scores, fin_len, fin_count,
+                                  nosp))
+
+    results = []
+    for g in range(n_audio):
+        seqs: List[List[int]] = []
+        lps: List[float] = []
+        for i in range(int(fin_count[g])):
+            seqs.append([int(t) for t in fin_toks[g, i, :int(fin_len[g, i])]])
+            lps.append(float(fin_scores[g, i]))
+        if len(seqs) < k:
+            # openai's finalize: pad with in-flight beams by score (+ EOT)
+            for i in np.argsort(-act_lp[g]):
+                if len(seqs) >= k:
+                    break
+                seqs.append([int(t) for t in act_toks[g, int(i), :steps]])
+                lps.append(float(act_lp[g, int(i)]))
+        sel = task.ranker.rank([seqs], [lps])[0]
+        toks = seqs[sel]
+        text = vocab.decode(toks).strip()
+        results.append(DecodingResult(
+            tokens=toks, text=text,
+            avg_logprob=float(lps[sel] / (len(toks) + 1)),
+            no_speech_prob=float(nosp[g]),
+            temperature=options.temperature,
+            compression_ratio=compression_ratio(text),
+        ))
+    return results

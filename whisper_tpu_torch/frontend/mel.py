@@ -15,7 +15,7 @@ import functools
 import numpy as np
 import torch
 
-from whisper_tpu.config import HOP_LENGTH, N_FFT
+from ..config import HOP_LENGTH, N_FFT
 
 _N_BINS = N_FFT // 2 + 1  # 201
 

@@ -7,7 +7,12 @@ Port of ``whisper_tpu/model/decoder.py`` for a scalar ``n_past``:
     IN PLACE at ``n_past`` (JAX's ``dynamic_update_slice`` is functional);
   * cross-attention reads the encoder's memory, K pre-scaled by d^-0.25 and
     Q scaled by the same factor here;
-  * logits are the tied token embedding's transpose, in f32.
+  * logits are the tied token embedding's transpose, in f32;
+  * self-attention over the float cache runs the decode-attention kernel
+    (K5, ``kernels.decode_attention``), reading one cache layer in place;
+  * group-shared cross memory: when the cross batch G is smaller than the
+    decoder batch G·k (beam rows, group-contiguous), the k rows of a group
+    fold into the query's T axis, so each group's memory is read once.
 
 int8 serving mode (``model.quant``): int8 weights with ``*_scale`` entries
 go through ``_plinear`` (weight-only, the scale after an f32 product), a
@@ -15,8 +20,8 @@ fused ``qkv_w`` replaces Q/K/V, an int8 tied embedding carries
 ``te_scale``, and ``QuantKV`` cross memory and self cache are read by the
 int8 decode-attention kernel (K4, ``kernels.cross_attention_int8``).
 
-Not ported yet: ``permute_rows``, ragged ``n_past``, ``defer_append``,
-group-shared cross memory (beam), ``decode_step_chunk`` and
+Not ported yet: ``permute_rows`` (the beam engine's fused reorder), ragged
+``n_past``, ``defer_append``, ``decode_step_chunk`` and
 ``cross_attention_probs``.
 """
 
@@ -27,10 +32,10 @@ from typing import NamedTuple, Optional, Tuple, Union
 import torch
 from torch import nn
 
-from whisper_tpu.config import WhisperConfig
-
+from ..config import WhisperConfig
 from ..kernels.cross_attention_int8 import cross_attention_int8
-from ..kernels.ops import NEG, gelu, layer_norm, linear, merge_heads, split_heads
+from ..kernels.decode_attention import _kvmajor_sdpa, cached_attention
+from ..kernels.ops import gelu, layer_norm, linear, merge_heads, split_heads
 from .params import Params, check_quantized, register_weights
 from .quant import QuantKV, _quantize_one
 
@@ -91,18 +96,6 @@ def wo_qlinear(y: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor,
     return out + b if b is not None else out
 
 
-def _kvmajor_sdpa(q, k, v, mask: Optional[torch.Tensor], scale: float):
-    """softmax(q kᵀ * scale, masked) v with f32 scores and softmax.
-
-    q (B,H,T,D) head-split; k/v (B,H,D,C) kv-major; mask bool (T,C)
-    broadcastable, True = attend, or None for all keys."""
-    logits = torch.matmul(q.float(), k.float()) * scale
-    if mask is not None:
-        logits = logits.masked_fill(~mask, NEG)
-    probs = torch.softmax(logits, dim=-1).to(v.dtype)
-    return torch.matmul(probs.float(), v.float().transpose(-1, -2)).to(q.dtype)
-
-
 def _project_qkv(y, blk: "DecoderBlock", h: int):
     """Self-attention projections: q (B,H,T,D), new K/V (B,H,D,T); one
     matmul when the block carries a fused ``qkv_w``."""
@@ -119,19 +112,28 @@ def _project_qkv(y, blk: "DecoderBlock", h: int):
 
 def _cross_mlp(x, blk: "DecoderBlock", cross_k, cross_v, cfg: WhisperConfig):
     """Cross-attention over the encoder memory (float, or int8 ``QuantKV``
-    through K4), then the MLP."""
+    through K4), then the MLP. A cross batch G smaller than the decoder
+    batch B = G·k is group-shared: the k rows of a group (contiguous) fold
+    into the query's T axis, so K4 reads each group's memory once."""
     h, d = cfg.n_text_head, cfg.d_head_text
-    if getattr(cross_k, "data", cross_k).shape[0] != x.shape[0]:
-        raise NotImplementedError("group-shared cross memory (beam groups) is not ported yet")
+    B, T, _ = x.shape
+    Bc = getattr(cross_k, "data", cross_k).shape[0]
+    if B % Bc:
+        raise ValueError(f"decoder batch {B} is not a multiple of the cross batch {Bc}")
+    kk = B // Bc
     y = layer_norm(x, blk.cross_attn_ln_w, blk.cross_attn_ln_b)
     qc = split_heads(_plinear(y, blk, "cross_q_w", "cross_q_b"), h)
     # cross_k carries d^-0.25; JAX multiplies q by the rest rounded to q's dtype.
     qc = qc * _scalar(d ** -0.25, qc.dtype)
+    if kk > 1:  # (G·k, H, T, D) -> (G, H, k·T, D)
+        qc = qc.unflatten(0, (Bc, kk)).transpose(1, 2).reshape(Bc, h, kk * T, d)
     if isinstance(cross_k, QuantKV):
         o = cross_attention_int8(qc.contiguous(), cross_k.data, cross_k.scale,
                                  cross_v.data, cross_v.scale)
     else:
         o = _kvmajor_sdpa(qc, cross_k, cross_v, None, 1.0)
+    if kk > 1:
+        o = o.unflatten(2, (kk, T)).transpose(1, 2).reshape(B, h, T, d)
     x = x + _plinear(merge_heads(o), blk, "cross_out_w", "cross_out_b")
     y = layer_norm(x, blk.mlp_ln_w, blk.mlp_ln_b)
     y = gelu(_plinear(y, blk, "mlp0_w", "mlp0_b"), cfg.gelu_impl)
@@ -170,10 +172,7 @@ class DecoderBlock(nn.Module):
         else:
             cache.k[:, layer, :, :, start:start + T] = k_new
             cache.v[:, layer, :, :, start:start + T] = v_new
-            key_pos = torch.arange(C, device=x.device)[None, :]
-            q_pos = n_past + torch.arange(T, device=x.device)[:, None]
-            o = _kvmajor_sdpa(q, cache.k[:, layer], cache.v[:, layer], key_pos <= q_pos,
-                              d ** -0.5)
+            o = cached_attention(q.contiguous(), cache.k[:, layer], cache.v[:, layer], n_past)
         x = x + _plinear(merge_heads(o), self, "out_w", "out_b")
         return _cross_mlp(x, self, cross_k, cross_v, cfg)
 

@@ -30,8 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from whisper_tpu.config import WhisperConfig
-
+from ..config import WhisperConfig
 from ..kernels.flash_attention import flash_attention
 from ..kernels.fused_quant import act_quant, gelu_quant, ln_quant
 from ..kernels.ops import gelu, layer_norm, linear, merge_heads, split_heads

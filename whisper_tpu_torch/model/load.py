@@ -1,7 +1,7 @@
 """Model loading: GGML file -> WhisperModel on one torch device.
 
-Port of ``whisper_tpu/model/load.py`` through the pure-Python GGML reader
-(``whisper_tpu.io.ggml.load_ggml``); the native C++ reader is not wired yet.
+Port of ``whisper_tpu/model/load.py`` through the port's pure-Python GGML
+reader (``io.ggml.load_ggml``); the native C++ reader is not wired yet.
 """
 
 from __future__ import annotations
@@ -12,17 +12,15 @@ import time
 import numpy as np
 import torch
 
-from whisper_tpu.config import WhisperConfig
-from whisper_tpu.io.ggml import load_ggml
-from whisper_tpu.io.vocab import WhisperVocab
-from whisper_tpu.model.params import params_from_ggml
-from whisper_tpu.utils.logging import StageTimers, get_logger
-
+from ..config import WhisperConfig
+from ..io.ggml import load_ggml
+from ..io.vocab import WhisperVocab
+from ..utils.logging import StageTimers, get_logger
 from .decoder import TextDecoder
 from .encoder import AudioEncoder
-from .params import Params, params_to_torch
+from .params import Params, params_from_ggml, params_to_torch
 
-log = get_logger("torch.model")
+log = get_logger("model")
 
 
 @dataclasses.dataclass
@@ -53,11 +51,12 @@ class WhisperModel:
                                    decoder=TextDecoder(params, self.config))
 
 
-def load_model(path: str, *, device: torch.device | str,
+def load_model(path: str, *, device: torch.device | str = "cuda",
                dtype: torch.dtype = torch.float32,
                gelu_impl: str = "erf") -> WhisperModel:
-    """Load a GGML checkpoint onto ``device`` with weights in ``dtype``
-    (f32 for parity, bf16 for serving); moments and softmax always run f32."""
+    """Load a GGML checkpoint onto ``device`` (the card unless the caller
+    asks for the CPU) with weights in ``dtype`` (f32 for parity, bf16 for
+    serving); moments and softmax always run f32."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"dtype must be float32 or bfloat16, got {dtype}")
     t0 = time.perf_counter()

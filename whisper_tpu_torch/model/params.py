@@ -1,10 +1,10 @@
-"""Parameters: the JAX package's numpy pytree as tensors on one device.
+"""Parameters: the JAX package's parameter tree as tensors on one device.
 
-``whisper_tpu.model.params.params_from_ggml`` (numpy, no jax) assembles the
-GGML tensors into a nested dict with every per-layer weight stacked along a
-leading layer axis. The port keeps that layout, so both packages compute
-from identical numbers; the encoder and decoder modules take per-layer
-views of the stacked tensors.
+``params_from_ggml`` (numpy; the port's own copy of the JAX package's)
+assembles the GGML tensors into a nested dict with every per-layer weight
+stacked along a leading layer axis. The port keeps that layout, so both
+packages compute from identical numbers; the encoder and decoder modules
+take per-layer views of the stacked tensors.
 """
 
 from __future__ import annotations
@@ -15,9 +15,81 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..config import WhisperConfig
 from .quant import _ENC_WEIGHT_KEYS
 
 Params = Dict[str, Any]
+
+# (tree field -> ggml name suffix) for one encoder block.
+_ENC_BLOCK = {
+    "attn_ln_w": "attn_ln.weight",
+    "attn_ln_b": "attn_ln.bias",
+    "q_w": "attn.query.weight",
+    "q_b": "attn.query.bias",
+    "k_w": "attn.key.weight",
+    "v_w": "attn.value.weight",
+    "v_b": "attn.value.bias",
+    "out_w": "attn.out.weight",
+    "out_b": "attn.out.bias",
+    "mlp_ln_w": "mlp_ln.weight",
+    "mlp_ln_b": "mlp_ln.bias",
+    "mlp0_w": "mlp.0.weight",
+    "mlp0_b": "mlp.0.bias",
+    "mlp1_w": "mlp.2.weight",
+    "mlp1_b": "mlp.2.bias",
+}
+
+# One decoder block adds cross-attention.
+_DEC_BLOCK = dict(
+    _ENC_BLOCK,
+    **{
+        "cross_attn_ln_w": "cross_attn_ln.weight",
+        "cross_attn_ln_b": "cross_attn_ln.bias",
+        "cross_q_w": "cross_attn.query.weight",
+        "cross_q_b": "cross_attn.query.bias",
+        "cross_k_w": "cross_attn.key.weight",
+        "cross_v_w": "cross_attn.value.weight",
+        "cross_v_b": "cross_attn.value.bias",
+        "cross_out_w": "cross_attn.out.weight",
+        "cross_out_b": "cross_attn.out.bias",
+    },
+)
+
+
+def _stack(tensors: Dict[str, np.ndarray], prefix: str, n_layer: int,
+           block_map: Dict[str, str], dtype) -> Dict[str, np.ndarray]:
+    return {field: np.stack([tensors[f"{prefix}.{i}.{suffix}"].astype(dtype)
+                             for i in range(n_layer)])
+            for field, suffix in block_map.items()}
+
+
+def params_from_ggml(tensors: Dict[str, np.ndarray], config: WhisperConfig,
+                     dtype=np.float32) -> Params:
+    """Assemble the named GGML tensors into the model tree (numpy)."""
+    c = config
+
+    def t(name):
+        return tensors[name].astype(dtype)
+
+    return {
+        "encoder": {
+            "pe": t("encoder.positional_embedding"),
+            "conv1_w": t("encoder.conv1.weight"),
+            "conv1_b": t("encoder.conv1.bias").reshape(-1),
+            "conv2_w": t("encoder.conv2.weight"),
+            "conv2_b": t("encoder.conv2.bias").reshape(-1),
+            "ln_post_w": t("encoder.ln_post.weight"),
+            "ln_post_b": t("encoder.ln_post.bias"),
+            "blocks": _stack(tensors, "encoder.blocks", c.n_audio_layer, _ENC_BLOCK, dtype),
+        },
+        "decoder": {
+            "pe": t("decoder.positional_embedding"),
+            "te": t("decoder.token_embedding.weight"),
+            "ln_w": t("decoder.ln.weight"),
+            "ln_b": t("decoder.ln.bias"),
+            "blocks": _stack(tensors, "decoder.blocks", c.n_text_layer, _DEC_BLOCK, dtype),
+        },
+    }
 
 
 def params_to_torch(params: Params, device: torch.device | str,

@@ -2,8 +2,10 @@
 
 Port of ``whisper_tpu/parallel/serving.py`` on one device: mel for every
 stream, one batched encoder forward, then all streams decode in lockstep
-(finished streams are frozen at EOT until the batch drains). A device mesh
-(tensor parallelism) is not ported yet and raises.
+(finished streams are frozen at EOT until the batch drains): greedy on the
+device loop; beam search (or best_of) options on the host loop, as the JAX
+package routes them. A device mesh (tensor parallelism) is not ported yet
+and raises.
 """
 
 from __future__ import annotations
@@ -13,8 +15,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from whisper_tpu.decoding.result import DecodingResult
-
+from ..decoding.result import DecodingResult
 from ..decoding.task import DecodingOptions, decode_full
 from ..frontend.mel import frame_count, log_mel_spectrogram, mel_window
 from ..model.load import WhisperModel
@@ -61,6 +62,7 @@ class BatchTranscriber:
             with model.timers.stage("encode"):
                 enc = model.encoder(mel)
                 _sync(model.device)
+            use_device = self.options.beam_size is None and (self.options.best_of or 1) == 1
             with model.timers.stage("decode"):
                 return decode_full(model.decoder, model.vocab, enc.cross_k, enc.cross_v,
-                                   self.options)
+                                   self.options, use_device_loop=use_device)

@@ -4,8 +4,10 @@
 
 Loads chip_smoke.py's synthetic large-v3 checkpoint (writing it if it is not
 there), prepares it as the int8 serving step does (``prepare_serving_params``)
-and profiles one W8A8 encode with its int8 cross memory, then one 16-token
-int8 decode, each after a warm run. For each it prints the wall time, the
+and profiles one W8A8 encode with its int8 cross memory, one 16-token int8
+greedy decode, and one 16-token int8 device beam (32 windows x beam 5 over
+the first 32 windows' cross memory, as ``make_serving_step(beam_size=5)``
+decodes), each after a warm run. For each it prints the wall time, the
 device time and the busy share, and the op table goes to
 ``build/profile/profile_int8_<name>.txt``.
 
@@ -26,6 +28,7 @@ from torch.profiler import ProfilerActivity, profile
 
 OUT = Path.cwd() / "build" / "profile"
 BATCH, DECODE_TOKENS = 64, 16
+GROUPS, BEAM = 32, 5
 
 
 def report(name: str, prof, wall: float, card: str) -> None:
@@ -46,13 +49,14 @@ def report(name: str, prof, wall: float, card: str) -> None:
 def main() -> None:
     import chip_smoke as smoke  # the checkpoint writer and the synthetic audio
 
+    from ..decoding.device_beam import beam_decode_device
     from ..decoding.device_loop import build_masks, decode_segment_device
     from ..frontend.mel import frame_count, log_mel_spectrogram, mel_window
     from ..kernels import build
     from ..model.decoder import KVCache
     from ..model.encoder import encode
     from ..model.load import load_model
-    from ..model.quant import init_quant_cache
+    from ..model.quant import QuantKV, init_quant_cache
     from .benchmark import prepare_serving_params
 
     card = smoke.phase_device()
@@ -80,10 +84,21 @@ def main() -> None:
                                          sup, blank, sample_len=DECODE_TOKENS,
                                          use_timestamps=True)
 
+        def beam(e):
+            cache = KVCache(*init_quant_cache(cfg, GROUPS * BEAM, "cuda",
+                                              ctx=1 + DECODE_TOKENS + 8))
+            ck, cv = (QuantKV(x.data[:, :GROUPS], x.scale[:, :GROUPS])
+                      for x in (e.cross_k, e.cross_v))
+            return beam_decode_device(model.decoder, init[:1].expand(GROUPS * BEAM, 1), 1, 0,
+                                      cache, ck, cv, sup, blank, beam_size=BEAM,
+                                      sample_len=DECODE_TOKENS)
+
         e = enc()
         dec(e)
+        beam(e)
         torch.cuda.synchronize()
-        for name, fn in (("encode", enc), (f"decode{DECODE_TOKENS}", lambda: dec(e))):
+        for name, fn in (("encode", enc), (f"decode{DECODE_TOKENS}", lambda: dec(e)),
+                         (f"beam{DECODE_TOKENS}", lambda: beam(e))):
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
                 fn()
