@@ -12,8 +12,11 @@ then exits non-zero without the final "ok" line:
    process per source, all started together.
 3. kernel: the flash_attention kernel (K1) against its plain PyTorch version
    on the card, at the encoder shapes of both main paths (large-v3 at batch
-   8 and 64) and at causal and ragged shapes, with CUDA-event times taken in
-   turns (plain, kernel, kernel, plain).
+   8 and 64), at causal and ragged shapes and at the edges of the bf16
+   kernel's tiles (one query, one key, fewer keys than a tile, causal with
+   Tq != Tk), with CUDA-event times taken in turns (plain, kernel, kernel,
+   plain), TFLOP/s and the share of the bound; at both main shapes also
+   F.scaled_dot_product_attention's time.
 4. parity: a small f32 checkpoint transcribed on the CPU (plain attention)
    and on the card (the kernel); encoder output, first-step logits and
    greedy tokens must agree.
@@ -270,24 +273,35 @@ def phase_build() -> None:
         seconds, report = build.build_info[name]
         log(f"[build] {name}.cu: nvcc {seconds:.2f} s")
         for line in report.splitlines():
-            if "registers" in line or "spill" in line or "entry function" in line:
+            if any(w in line for w in ("registers", "spill", "entry function", "wgmma")):
                 log(f"[build]   {line.strip()}")
 
 
+K1_CASES = [  # (batch, heads, tq, tk, causal, dtype)
+    (8, 20, 1500, 1500, False, torch.bfloat16),  # encoder main path, large-v3 b8
+    (64, 20, 1500, 1500, False, torch.bfloat16),  # int8 main path's encoder, b64
+    (8, 20, 1500, 1500, False, torch.float32),
+    (2, 20, 448, 448, True, torch.bfloat16),
+    (2, 20, 448, 448, True, torch.float32),
+    (2, 20, 100, 300, False, torch.bfloat16),
+    (2, 20, 100, 300, False, torch.float32),
+    # edges of the bf16 kernel's tiles: one query, one key, fewer keys than a
+    # tile with a ragged query tile, causal with fewer and more queries than keys
+    (2, 20, 1, 1500, False, torch.bfloat16),
+    (2, 20, 1500, 1, False, torch.bfloat16),
+    (2, 20, 200, 100, False, torch.bfloat16),
+    (2, 20, 100, 300, True, torch.bfloat16),
+    (2, 20, 300, 100, True, torch.bfloat16),
+    (2, 20, 300, 100, True, torch.float32),
+]
+
+
 def phase_kernel(card: str) -> dict:
-    """K1 vs its plain version; returns the main-path bf16 row."""
+    """K1 vs its plain version; returns the bf16 rows of the two main paths'
+    shapes, "b8" and "b64"."""
     gen = torch.Generator(device="cuda").manual_seed(0)
-    cases = [  # (batch, heads, tq, tk, causal, dtype)
-        (8, 20, 1500, 1500, False, torch.bfloat16),  # encoder main path, large-v3 b8
-        (64, 20, 1500, 1500, False, torch.bfloat16),  # int8 main path's encoder, b64
-        (8, 20, 1500, 1500, False, torch.float32),
-        (2, 20, 448, 448, True, torch.bfloat16),
-        (2, 20, 448, 448, True, torch.float32),
-        (2, 20, 100, 300, False, torch.bfloat16),
-        (2, 20, 100, 300, False, torch.float32),
-    ]
-    main = None
-    for b, h, tq, tk, causal, dtype in cases:
+    main = {}
+    for b, h, tq, tk, causal, dtype in K1_CASES:
         q, k, v = (torch.randn(b, h, t, 64, device="cuda", generator=gen).to(dtype)
                    for t in (tq, tk, tk))
         out = flash_attention(q, k, v, causal=causal)
@@ -301,23 +315,27 @@ def phase_kernel(card: str) -> dict:
         plain = lambda: flash_attention_reference(q, k, v, causal=causal)  # noqa: E731
         kern = lambda: flash_attention(q, k, v, causal=causal)  # noqa: E731
         ms, plain_ms, (t_plain1, t_k1, t_k2, t_plain2) = in_turns(plain, kern, iters)
-        tflops = 4 * b * h * tq * tk * 64 / (ms * 1e-3) / 1e12
+        # only the query-key pairs the causal mask lets through
+        n_ops = 4 * b * h * causal_keys(0 if causal else None, tq, tk)[1] * 64
+        bound, by = bound_ms(nbytes(q, k, v, out), n_ops, dtype)
         log(f"[kernel] flash_attention ({b * h}, {tq}x{tk}, 64) {str(dtype)[6:]} causal={causal}: "
             f"max_abs_err {err:.3e} (atol {atol:.0e}, rtol {rtol:.1e}); kernel {ms:.4f} ms "
             f"({t_k1:.4f}, {t_k2:.4f}), plain {plain_ms:.4f} ms ({t_plain1:.4f}, {t_plain2:.4f}); "
-            f"kernel {tflops:.1f} TFLOP/s (dense, no causal skip); {card}")
+            f"kernel {n_ops / (ms * 1e-3) / 1e12:.1f} TFLOP/s, bound {bound:.4f} ms ({by}), "
+            f"{bound / ms:.1%} of the bound; {card}")
         if not ok:
             raise AssertionError(f"flash_attention disagrees with its plain version: "
                                  f"max_abs_err {err}, atol {atol}, rtol {rtol}")
-        if main is None:  # the b8 bf16 row: bound and library call
-            bound, by = bound_ms(nbytes(q, k, v, out), 4 * b * h * tq * tk * 64, dtype)
+        if dtype == torch.bfloat16 and tq == tk == 1500 and b in (8, 64):
             lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), iters)
-            log(f"[kernel] flash_attention ({b * h}, {tq}x{tk}, 64) {str(dtype)[6:]}: bound "
-                f"{bound:.4f} ms ({by}), F.scaled_dot_product_attention {lib_ms:.4f} ms; {card}")
-            main = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-                    "bound_by": by, "library_ms": lib_ms}
+            log(f"[kernel] flash_attention ({b * h}, {tq}x{tk}, 64) bf16: kernel {ms:.4f} ms, "
+                f"F.scaled_dot_product_attention {lib_ms:.4f} ms "
+                f"({n_ops / (lib_ms * 1e-3) / 1e12:.1f} TFLOP/s), kernel / library "
+                f"{ms / lib_ms:.2f}; bound {bound:.4f} ms ({by}); {card}")
+            main[f"b{b}"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                             "bound_ms": bound, "bound_by": by, "library_ms": lib_ms}
         del q, k, v, out, ref, diff
-    torch.cuda.empty_cache()  # the b64 plain version held ~29 GB of scores
+        torch.cuda.empty_cache()  # the b64 plain version held ~29 GB of scores
     return main
 
 
@@ -1054,7 +1072,12 @@ def main() -> None:
     host = phase_host_beam(card, model)
     src, tpu = "whisper_tpu_torch/csrc/", "whisper_tpu/kernels/"
     entries = [
-        ("flash_attention", "flash_attention.cu", "flash_attention.py:141", bf16["k1"], k1),
+        # K1 on both encode paths (phases 5 and 8), with the b8 row; the b64
+        # row beside it with phase 8's launches
+        ("flash_attention", "flash_attention.cu", "flash_attention.py:141",
+         bf16["k1"] + n["k1"], k1["b8"]),
+        ("flash_attention.b64", "flash_attention.cu", "flash_attention.py:141", n["k1"],
+         k1["b64"]),
         ("fused_quant.act_quant", "fused_quant.cu", "fused_quant.py:113", n["act"], rows["act"]),
         ("fused_quant.ln_quant", "fused_quant.cu", "fused_quant.py:113", n["ln"], rows["ln"]),
         ("fused_quant.gelu_quant", "fused_quant.cu", "fused_quant.py:113", n["gelu"],

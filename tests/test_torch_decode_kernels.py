@@ -146,3 +146,65 @@ def test_row_copies_refuse_an_index_on_another_device(wrapper):
     with pytest.raises(ValueError, match="first leaf on cpu"):
         fn([torch.zeros(4, 3)], idx.to("meta"))
     assert fn.launches == 0
+
+
+# Row sizes of the two smoke shapes (int8 codes / f32 scales of the 160-row
+# cache, the host beam's bf16 K/V pair) and the same sizes knocked off 16.
+INT8_ROW, SCALE_ROW, BF16_ROW = 32 * 20 * 64 * 75, 4 * 32 * 20 * 75, 2 * 32 * 20 * 64 * 448
+
+
+@pytest.mark.parametrize("row_bytes,n_rows", [
+    ([INT8_ROW, SCALE_ROW, INT8_ROW, SCALE_ROW], 160),
+    ([INT8_ROW + 5, SCALE_ROW + 3, INT8_ROW - 7, 9], 160),
+    ([BF16_ROW, BF16_ROW], 20),
+    ([BF16_ROW + 1, BF16_ROW - 15], 20),
+    ([0, 33, 16], 3),
+])
+def test_copy_plan_covers_each_output_byte_once_in_real_pieces(row_bytes, n_rows):
+    first = bg.copy_plan(row_bytes, n_rows)
+    pieces = list(bg.plan_pieces(row_bytes, n_rows))
+    assert len(pieces) == first[-1]
+    spans = {}
+    for z, j, c0, c1 in pieces:
+        assert 0 <= c0 < c1 <= row_bytes[z] and c1 - c0 <= bg.CHUNK_BYTES  # no empty piece
+        spans.setdefault((z, j), []).append((c0, c1))
+    for z, rb in enumerate(row_bytes):
+        for j in range(n_rows):
+            end = 0
+            for c0, c1 in sorted(spans.get((z, j), [])):
+                assert c0 == end  # no gap, no overlap
+                end = c1
+            assert end == rb
+    # the rows of one (leaf, chunk) are adjacent blocks, in row order
+    for b in range(0, len(pieces), n_rows):
+        group = pieces[b:b + n_rows]
+        assert len({(z, c0) for z, _, c0, _ in group}) == 1
+        assert [j for _, j, _, _ in group] == list(range(n_rows))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_copy_plan_run_on_the_host_gathers_and_forks_like_the_plain_versions(seed, monkeypatch):
+    """Both kernels' loops, run over bytes in numpy with a 16-byte chunk:
+    the gather equals index_select, the fork copy the plain cow_copy_rows."""
+    monkeypatch.setattr(bg, "CHUNK_BYTES", 16)
+    rng = np.random.default_rng(seed)
+    leaves = [rng.integers(-127, 128, size=(6, 3, 7)).astype(np.int8),
+              rng.random((6, 5)).astype(np.float32), rng.random((6, 2, 3)).astype(np.float64)]
+    row_bytes = [a[0].nbytes for a in leaves]
+    rows = np.array([3, 3, 0, 5, 1, 3])
+    flat = [a.reshape(6, -1).view(np.uint8) for a in leaves]
+    outs = [np.zeros_like(f) for f in flat]
+    for z, j, c0, c1 in bg.plan_pieces(row_bytes, 6):
+        outs[z][j, c0:c1] = flat[z][rows[j], c0:c1]
+    want = bg.permute_rows_reference([torch.from_numpy(a) for a in leaves], torch.from_numpy(rows))
+    for o, w, a in zip(outs, want, leaves):
+        np.testing.assert_array_equal(o.view(a.dtype).reshape(a.shape), w.numpy())
+    src = np.array([0, 0, 2, 2, 4, 0])  # rows 1, 3, 5 fork from 0, 2, 0
+    forked = [f.copy() for f in flat]
+    for z, i, c0, c1 in bg.plan_pieces(row_bytes, 6):
+        if src[i] != i:
+            forked[z][i, c0:c1] = forked[z][src[i], c0:c1]
+    want = bg.cow_copy_rows_reference([torch.from_numpy(a.copy()) for a in leaves],
+                                      torch.from_numpy(src))
+    for o, w, a in zip(forked, want, leaves):
+        np.testing.assert_array_equal(o.view(a.dtype).reshape(a.shape), w.numpy())

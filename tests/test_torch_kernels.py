@@ -90,3 +90,59 @@ def test_elementwise_ops_and_layouts_match_jax():
     heads = ops.split_heads(tx, 4)
     np.testing.assert_array_equal(heads.numpy(), np.asarray(jax_ops.split_heads(jnp.asarray(x), 4)))
     np.testing.assert_array_equal(ops.merge_heads(heads).numpy(), x)
+
+
+PLAN_SHAPES = ([(tq, tk, False) for tq in (1, 37, 128, 1500) for tk in (1, 37, 128, 1500)]
+               + [(448, 448, True), (100, 300, True), (300, 100, True), (1, 1, True)])
+
+
+@pytest.mark.parametrize("tq,tk,causal", PLAN_SHAPES)
+def test_attention_tile_plan_covers_each_row_once_and_skips_only_dead_tiles(tq, tk, causal):
+    plan = fa.attention_tile_plan(tq, tk, causal)
+    rows = np.concatenate([np.arange(q0, q1) for q0, q1, _, _ in plan])
+    np.testing.assert_array_equal(rows, np.arange(tq))  # every query row once
+    bq, bk = fa.BLOCK_Q, fa.BLOCK_K
+    for q0, q1, tiles, masked in plan:
+        assert q0 % bq == 0 and 0 < q1 - q0 <= bq
+        r = np.arange(q0, q1)[:, None]
+        block_rows = np.arange(q0, q0 + bq)[:, None]  # the kernel computes padded rows too
+        for n in range(-(-tk // bk)):
+            key = np.arange(n * bk, (n + 1) * bk)[None, :]
+            live = (key < tk) & ((not causal) | (key <= r))
+            # loaded iff some real row sees some key of the tile
+            assert (n < tiles) == bool(live.any()), (q0, n)
+            if n < tiles:  # masked iff some slot of the tile is dead for some row
+                dead = (key >= tk) | (causal & (key > block_rows))
+                assert (n in masked) == bool(dead.any()), (q0, n)
+
+
+@pytest.mark.parametrize("tq,tk,causal", [(37, 1, False), (200, 300, False), (300, 100, True),
+                                          (130, 260, True)])
+def test_attention_tile_plan_reproduces_the_plain_version(tq, tk, causal):
+    """The bf16 kernel's schedule in numpy, f64: zero-filled K/V past tk,
+    masks only on the plan's masked tiles, online softmax per key tile."""
+    q, k, v = (a[0, 0].astype(np.float64) for a in _qkv(4, tq, tk, h=1))
+    bq, bk = fa.BLOCK_Q, fa.BLOCK_K
+    n_k = -(-tk // bk)
+    kp, vp = (np.concatenate([a, np.zeros((n_k * bk - tk, 64))]) for a in (k, v))
+    out = np.zeros((tq, 64))
+    for q0, q1, tiles, masked in fa.attention_tile_plan(tq, tk, causal):
+        qb = np.zeros((bq, 64))
+        qb[:q1 - q0] = q[q0:q1]
+        m, s_sum, acc = np.full(bq, -np.inf), np.zeros(bq), np.zeros((bq, 64))
+        for n in range(tiles):
+            s = qb @ kp[n * bk:(n + 1) * bk].T / 8.0
+            if n in masked:
+                key = np.arange(n * bk, (n + 1) * bk)[None, :]
+                row = np.arange(q0, q0 + bq)[:, None]
+                s = np.where((key >= tk) | (causal & (key > row)), -np.inf, s)
+            m_new = np.maximum(m, s.max(1))
+            p, corr = np.exp(s - m_new[:, None]), np.exp(m - m_new)
+            s_sum, m = s_sum * corr + p.sum(1), m_new
+            acc = acc * corr[:, None] + p @ vp[n * bk:(n + 1) * bk]
+        out[q0:q1] = (acc / s_sum[:, None])[:q1 - q0]
+    s = q @ k.T / 8.0  # the plain version's masked softmax, in f64
+    if causal:
+        s = np.where(np.arange(tk)[None, :] <= np.arange(tq)[:, None], s, -np.inf)
+    p = np.exp(s - s.max(1, keepdims=True))
+    np.testing.assert_allclose(out, p @ v / p.sum(1, keepdims=True), atol=1e-12)

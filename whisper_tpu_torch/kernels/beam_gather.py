@@ -16,7 +16,10 @@ Port of ``whisper_tpu/kernels/beam_gather.py``:
 Leaves are batch-leading and contiguous and may differ in dtype and trailing
 shape (int8 codes (B, L, H, D, C) beside f32 scales (B, L, H, C), or bf16/f32
 K and V). On CUDA tensors the wrappers launch ``csrc/beam_gather.cu``; on CPU
-tensors they run the plain versions. There is no other route.
+tensors they run the plain versions. There is no other route. Both kernels
+follow ``copy_plan``: one block per real piece (a ``CHUNK_BYTES`` span of
+one row of one leaf), leaf by leaf and chunk by chunk with the rows
+innermost, so the copies of one source chunk run together.
 
 ``lane_dot_permute``/``layer_dot_permute`` (XLA carry-layout workarounds of
 the JAX package) are not carried over.
@@ -25,6 +28,7 @@ the JAX package) are not carried over.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import List, Sequence
 
 import torch
@@ -32,6 +36,31 @@ import torch
 from ..model.quant import QuantKV
 
 MAX_LEAVES = 8
+CHUNK_BYTES = 131072  # bytes per block; csrc/beam_gather.cu's CHUNK
+
+
+def copy_plan(row_bytes: Sequence[int], n_rows: int) -> List[int]:
+    """The launch plan of both row-copy kernels: the first block of each
+    leaf, and the number of blocks in all last. With C = ``CHUNK_BYTES``,
+    leaf z takes ``ceil(row_bytes[z] / C) * n_rows`` blocks; its block
+    ``first[z] + c * n_rows + j`` copies bytes ``[c * C, min((c + 1) * C,
+    row_bytes[z]))`` of row j, so no block is empty and the rows of one
+    chunk are adjacent."""
+    first = [0]
+    for rb in row_bytes:
+        first.append(first[-1] + -(-rb // CHUNK_BYTES) * n_rows)
+    return first
+
+
+def plan_pieces(row_bytes: Sequence[int], n_rows: int):
+    """``(leaf, row, byte start, byte end)`` of every block of
+    ``copy_plan``, in block order: what the kernels compute from their
+    block index."""
+    first = copy_plan(row_bytes, n_rows)
+    for z, rb in enumerate(row_bytes):
+        for b in range(first[z + 1] - first[z]):
+            c, j = divmod(b, n_rows)
+            yield z, j, c * CHUNK_BYTES, min((c + 1) * CHUNK_BYTES, rb)
 
 
 def cache_leaves(cache) -> List[torch.Tensor]:
@@ -98,17 +127,26 @@ def _check(leaves, idx: torch.Tensor, n_src: int, what: str) -> None:
 
 _PTRS, _SIZES = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_longlong)
 _ARGTYPES = {  # the C signatures in csrc/beam_gather.cu
-    "whisper_permute_rows": [_PTRS, _PTRS, _SIZES, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-                             ctypes.c_void_p],
-    "whisper_cow_copy_rows": [_PTRS, _SIZES, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+    "whisper_permute_rows": [_PTRS, _PTRS, _SIZES, _SIZES, ctypes.c_int, ctypes.c_void_p,
+                             ctypes.c_int, ctypes.c_void_p],
+    "whisper_cow_copy_rows": [_PTRS, _SIZES, _SIZES, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
                               ctypes.c_void_p],
 }
 
 
-def _launch(name: str, *args) -> None:
+@functools.cache
+def _library() -> ctypes.CDLL:
     from .build import load_library
 
-    fn = getattr(load_library("beam_gather"), name)
+    lib = load_library("beam_gather")
+    lib.whisper_row_copy_chunk_bytes.restype = ctypes.c_longlong
+    if lib.whisper_row_copy_chunk_bytes() != CHUNK_BYTES:
+        raise RuntimeError("csrc/beam_gather.cu's CHUNK differs from CHUNK_BYTES")
+    return lib
+
+
+def _launch(name: str, *args) -> None:
+    fn = getattr(_library(), name)
     fn.argtypes, fn.restype = _ARGTYPES[name], ctypes.c_int
     err = fn(*args)
     if err != 0:
@@ -119,9 +157,14 @@ def _pointers(tensors) -> ctypes.Array:
     return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
 
 
-def _row_bytes(leaves) -> ctypes.Array:
-    return (ctypes.c_longlong * len(leaves))(
-        *[a[0].numel() * a.element_size() if a.shape[0] else 0 for a in leaves])
+def _sizes(values) -> ctypes.Array:
+    return (ctypes.c_longlong * len(values))(*values)
+
+
+def _plan_args(leaves, n_rows: int):
+    """(row bytes, copy_plan) of the leaves as C arrays."""
+    row_bytes = [a[0].numel() * a.element_size() if a.shape[0] else 0 for a in leaves]
+    return _sizes(row_bytes), _sizes(copy_plan(row_bytes, n_rows))
 
 
 def permute_rows_multi(leaves: Sequence[torch.Tensor], rows: torch.Tensor) -> List[torch.Tensor]:
@@ -137,8 +180,8 @@ def permute_rows_multi(leaves: Sequence[torch.Tensor], rows: torch.Tensor) -> Li
     outs = [torch.empty((rows.shape[0],) + a.shape[1:], dtype=a.dtype, device=a.device)
             for a in leaves]
     with torch.cuda.device(rows.device):
-        _launch("whisper_permute_rows", _pointers(leaves), _pointers(outs), _row_bytes(leaves),
-                len(leaves), rows.data_ptr(), rows.shape[0],
+        _launch("whisper_permute_rows", _pointers(leaves), _pointers(outs),
+                *_plan_args(leaves, rows.shape[0]), len(leaves), rows.data_ptr(), rows.shape[0],
                 torch.cuda.current_stream(rows.device).cuda_stream)
     permute_rows_multi.launches += 1
     return outs
@@ -171,8 +214,9 @@ def cow_copy_rows(leaves: Sequence[torch.Tensor], src: torch.Tensor) -> List[tor
     _check(leaves, src, src.shape[0], "cow_copy_rows")
     src = src.to(torch.int64)
     with torch.cuda.device(src.device):
-        _launch("whisper_cow_copy_rows", _pointers(leaves), _row_bytes(leaves), len(leaves),
-                src.data_ptr(), src.shape[0], torch.cuda.current_stream(src.device).cuda_stream)
+        _launch("whisper_cow_copy_rows", _pointers(leaves), *_plan_args(leaves, src.shape[0]),
+                len(leaves), src.data_ptr(), src.shape[0],
+                torch.cuda.current_stream(src.device).cuda_stream)
     cow_copy_rows.launches += 1
     return leaves
 

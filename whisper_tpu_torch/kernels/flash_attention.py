@@ -2,11 +2,13 @@
 
 ``flash_attention`` is the port of ``whisper_tpu/kernels/flash_attention.py``
 (``flash_attention`` -> ``_attn_kernel``). On a CUDA tensor it launches the
-hand-written kernel ``csrc/flash_attention.cu`` (see the note there: it
-streams K/V tiles through shared memory with an online f32 softmax, where
-the TPU kernel held one head's whole K/V and score tile in VMEM); on a CPU
-tensor it runs ``flash_attention_reference``. There is no other route: a
-CUDA call that the kernel cannot take raises.
+hand-written kernel ``csrc/flash_attention.cu`` (see the note there: for
+bf16, TMA loads of 128-key K/V tiles into a ring of shared-memory stages and
+``wgmma`` products with an online f32 softmax in registers, where the TPU
+kernel held one head's whole K/V and score tile in VMEM); on a CPU tensor it
+runs ``flash_attention_reference``. There is no other route: a CUDA call
+that the kernel cannot take raises. ``attention_tile_plan`` states the bf16
+kernel's tile plan, so that the CPU tests can check it.
 
 Not ported yet: the ``qk_int8`` score path (unwired in the JAX package) and
 the ``flash_sdpa`` backward (training only).
@@ -21,6 +23,27 @@ import torch
 
 NEG = -1e30
 D_HEAD = 64  # every Whisper size: 384/6 ... 1280/20
+BLOCK_Q, BLOCK_K = 192, 128  # the bf16 kernel's query rows per block, keys per tile
+
+
+def attention_tile_plan(tq: int, tk: int, causal: bool) -> list:
+    """The bf16 kernel's plan for one head: per block, ``(q0, q1,
+    key_tiles, masked)`` with query rows ``q0 .. q1 - 1``, the key tiles it
+    loads (``range(key_tiles)``, tile n holding keys ``n * BLOCK_K ..``) and
+    the tiles among them that take the per-element mask: those holding a
+    key ``>= tk`` (TMA fills them with zeros) or, under ``causal``, a key
+    past the block's first row. Under ``causal`` the tiles wholly past the
+    block's last row are never loaded. ``csrc/flash_attention.cu`` (``key_tiles``, ``tile_masked``)
+    computes the same."""
+    n_k = -(-tk // BLOCK_K)
+    plan = []
+    for q0 in range(0, tq, BLOCK_Q):
+        q1 = min(q0 + BLOCK_Q, tq)
+        tiles = min(n_k, (q1 - 1) // BLOCK_K + 1) if causal else n_k
+        masked = [n for n in range(tiles)
+                  if (n + 1) * BLOCK_K > tk or (causal and (n + 1) * BLOCK_K - 1 > q0)]
+        plan.append((q0, q1, tiles, masked))
+    return plan
 
 
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -59,6 +82,8 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+        if t.data_ptr() % 16:  # TMA reads from 16-byte aligned addresses
+            raise ValueError(f"{name} must start on a 16-byte boundary")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
