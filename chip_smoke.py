@@ -56,6 +56,27 @@ then exits non-zero without the final "ok" line:
    over 4 clips, twice in the same way: K5 at every forward, K6 at every
    step whose beam sources moved (counted in the first run).
 
+13. train kernels: flash_sdpa (K1c: the K1 forward, the closed-form
+   backward) forward and backward against autograd of the plain version at
+   the training path's shapes (large-v3 encoder at batch 2, f32 and bf16;
+   its causal decoder over a 64-token bucket), and flash_attention's
+   qk_int8 variant (K1b) against its plain version at the encoder's
+   (160, 1500, 64), bf16 and f32, causal or not; timed in turns, with
+   F.scaled_dot_product_attention's forward and backward beside K1c, and
+   K1c's forward alone (K1's f32 kernel) beside the plain version and
+   F.scaled_dot_product_attention at the encoder's (40, 1500, 64) f32. K1b
+   is then driven once through its entry point, ops.sdpa(use_flash=True,
+   qk_int8=True).
+14. train parity: one train step of a small f32 model (random weights from
+   a seed, d_head 64) on the CPU (plain versions) and on the card (the
+   kernels): the loss and every gradient leaf must agree.
+15. train main path: large-v3 in f32 with random weights drawn on the card,
+   finetune over two synthetic 30 s pairs at batch 2 for 4 steps (lr 1e-4,
+   warm-up 1): every loss finite, the last below the first, K1's f32 kernel
+   launched 2 x 32 times per forward (all through flash_sdpa: flash_attention
+   raises when a gradient is asked of it) and its bf16 kernel never; ms per
+   step and peak memory.
+
 The line before the last is the kernels JSON: every kernel with its
 main-path launches, error against its plain version, kernel, plain and
 library times, and its bound (bytes over 3.35 TB/s or operations over the
@@ -91,14 +112,20 @@ from whisper_tpu_torch.kernels.cross_attention_int8 import (cross_attention_int8
                                                             cross_attention_int8_reference)
 from whisper_tpu_torch.kernels.decode_attention import (cached_attention,
                                                         cached_attention_reference, causal_mask)
-from whisper_tpu_torch.kernels.flash_attention import flash_attention, flash_attention_reference
+from whisper_tpu_torch.kernels.flash_attention import (flash_attention,
+                                                       flash_attention_int8_reference,
+                                                       flash_attention_reference, flash_sdpa)
+from whisper_tpu_torch.kernels import ops
 from whisper_tpu_torch.kernels.ops import gelu, layer_norm
 from whisper_tpu_torch.model import decoder as decoder_module
 from whisper_tpu_torch.model.decoder import KVCache, decode_step, init_cache
 from whisper_tpu_torch.model.encoder import encode
-from whisper_tpu_torch.model.load import load_model
+from whisper_tpu_torch.model.load import load_model, random_model
 from whisper_tpu_torch.model.quant import QuantKV, init_quant_cache, quantize_act, quantize_kv
 from whisper_tpu_torch.parallel.serving import BatchTranscriber
+from whisper_tpu_torch.training import finetune as finetune_module
+from whisper_tpu_torch.training.train import (init_train_state, leaves, make_optimizer,
+                                              make_train_step)
 from whisper_tpu_torch.utils.benchmark import make_serving_step, prepare_serving_params
 
 ROOT = Path(__file__).resolve().parent
@@ -153,6 +180,21 @@ INT8_AGREEMENT = 0.9
 # online softmax), so only the order of the f32 sums differs: a bf16 output
 # may move by one ulp (2^-7 of its magnitude), an f32 one by f32 noise.
 K5_TOL = K4_TOL
+# K1c's gradients against autograd of the plain version in f32 (on the
+# upcast inputs for bf16): the backward recomputes the same f32 softmax, so
+# only the order of the f32 sums differs (the CPU tests' bound, 2e-4 and
+# 1e-3); a bf16 gradient is that f32 result rounded to bf16, within 2^-8 of
+# its magnitude.
+K1C_GRAD_TOL = {torch.float32: (2e-4, 1e-3), torch.bfloat16: (2e-4, 2 ** -7)}
+# K1b vs its plain version: the same codes and bit-identical f32 scores
+# (an exact int32 dot, the same products in the same order), so only exp and
+# the order of the f32 sums differ: f32 as K1; a bf16 output within one bf16
+# ulp (2^-7 of its magnitude), as K4.
+K1B_TOL = {torch.float32: (2e-5, 1e-5), torch.bfloat16: (1e-3, 2 ** -7)}
+# One train step, CPU vs card, f32 (TF32 off): GEMM, convolution and K1 sums
+# in other orders; the loss and each gradient leaf relative to its largest
+# element. The CPU tests hold the port to JAX at 1e-5 of the same measure.
+TRAIN_PARITY_REL = 1e-4
 KERNELS = ("flash_attention", "fused_quant", "cross_attention_int8", "decode_attention",
            "beam_gather")
 INT8_PATH = ("k1", "act", "ln", "gelu", "k4", "k4_self")  # the int8 greedy step's kernels
@@ -160,7 +202,7 @@ INT8_PATH = ("k1", "act", "ln", "gelu", "k4", "k4_self")  # the int8 greedy step
 # device memory rate, and operations per second by the type the kernel
 # computes in (bf16 on the tensor cores, f32 on CUDA cores).
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12, torch.int8: 1979e12}
 
 
 def log(msg: str) -> None:
@@ -216,8 +258,11 @@ def bound_ms(n_bytes: float, n_ops: float, dtype) -> tuple:
     """(the least time the card could take, in ms; "bytes" or "operations",
     whichever bounds it): each input read once and each output written once
     over the memory rate, against the operations over the peak of their
-    type."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / PEAK_OPS[dtype] * 1e3
+    type. ``n_ops`` may be a {dtype: operations} dict for work in several
+    types."""
+    ops_by_type = n_ops if isinstance(n_ops, dict) else {dtype: n_ops}
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = sum(n / PEAK_OPS[t] for t, n in ops_by_type.items()) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -386,9 +431,9 @@ def phase_parity(card: str) -> None:
         if not err <= PARITY_ATOL:
             raise AssertionError(f"first-step logits differ between cpu and cuda: {err}")
 
-    launches0 = flash_attention.launches
+    launches0 = flash_attention.f32_launches
     results = {dev: bt.transcribe_batch(audios) for dev, bt in bts.items()}
-    if flash_attention.launches - launches0 != cfg.n_audio_layer:
+    if flash_attention.f32_launches - launches0 != cfg.n_audio_layer:
         raise AssertionError("the cuda encoder did not run flash_attention once per layer")
     for i, (c, g) in enumerate(zip(results["cpu"], results["cuda"])):
         if c.tokens != g.tokens:
@@ -639,7 +684,8 @@ def phase_int8_parity(card: str) -> None:
     n_tok = 48
     _zero_launches()
     toks = {dev: make_serving_step(m, batch, n_tok, "int8")(audio) for dev, m in models.items()}
-    n = {key: v for key, v in _read_launches().items() if key in INT8_PATH}
+    n = {key: v for key, v in _read_launches().items() if key in INT8_PATH or key == "k1_f32"}
+    del n["k1"]  # the f32 checkpoint's attention runs K1's f32 kernel, not the bf16 one
     if min(n.values()) == 0:
         raise AssertionError(f"a kernel of the int8 path was not launched on the card: {n}")
     sot = models["cpu"].vocab.token_sot
@@ -668,7 +714,7 @@ def _leaves(tree, prefix=""):
 
 
 def _zero_launches() -> None:
-    flash_attention.launches = 0
+    flash_attention.launches = flash_attention.f32_launches = flash_attention.int8_launches = 0
     fused_quant.act_quant.launches = fused_quant.ln_quant.launches = 0
     fused_quant.gelu_quant.launches = 0
     cross_attention_int8.launches = cross_attention_int8.masked_launches = 0
@@ -677,7 +723,8 @@ def _zero_launches() -> None:
 
 
 def _read_launches() -> dict:
-    return {"k1": flash_attention.launches, "act": fused_quant.act_quant.launches,
+    return {"k1": flash_attention.launches, "k1_f32": flash_attention.f32_launches,
+            "k1b": flash_attention.int8_launches, "act": fused_quant.act_quant.launches,
             "ln": fused_quant.ln_quant.launches, "gelu": fused_quant.gelu_quant.launches,
             "k4": cross_attention_int8.launches, "k4_self": cross_attention_int8.masked_launches,
             "k5": cached_attention.launches, "k6": beam_gather.permute_rows_multi.launches,
@@ -1057,6 +1104,255 @@ def phase_host_beam(card: str, model) -> dict:
     return n
 
 
+K1C_CASES = [  # (batch·heads, tq, tk, causal, dtype): the training path at batch 2
+    (2 * 20, 1500, 1500, False, torch.float32),   # large-v3 encoder self-attention, f32
+    (2 * 20, 63, 63, True, torch.float32),        # its decoder over a 64-token bucket
+    (2 * 20, 1500, 1500, False, torch.bfloat16),
+]
+K1B_CASES = [(160, 1500, False, torch.bfloat16), (160, 1500, True, torch.bfloat16),
+             (160, 1500, False, torch.float32), (160, 1500, True, torch.float32)]
+
+
+def _within(got, want, tol) -> tuple:
+    """(every element within atol + rtol·|want|, max abs error)."""
+    diff = (got.float() - want.float()).abs()
+    atol, rtol = tol
+    return bool((diff <= atol + rtol * want.float().abs()).all()), diff.max().item()
+
+
+def _k1c_cases(card: str, gen, rows: dict) -> None:
+    for bh, tq, tk, causal, dtype in K1C_CASES:
+        q, k, v = (torch.randn(bh, t, 64, device="cuda", generator=gen).to(dtype).requires_grad_()
+                   for t in (tq, tk, tk))
+        g = torch.randn(bh, tq, 64, device="cuda", generator=gen).to(dtype)
+        out = flash_sdpa(q, k, v, causal)
+        grads = torch.autograd.grad(out, (q, k, v), g)
+        torch.cuda.synchronize()
+        # the plain version: autograd of flash_attention_reference in f32
+        q32, k32, v32 = (t.detach().float().requires_grad_() for t in (q, k, v))
+        ref_grads = torch.autograd.grad(flash_attention_reference(q32, k32, v32, causal),
+                                        (q32, k32, v32), g.float())
+        ok, err = _within(out, flash_attention_reference(q, k, v, causal), K1_TOL[dtype])
+        grad_err = 0.0
+        for name, got, want in zip("qkv", grads, ref_grads):
+            g_ok, g_err = _within(got, want, K1C_GRAD_TOL[dtype])
+            ok, grad_err = ok and g_ok, max(grad_err, g_err)
+        iters = 5 if tq * tk > 1e6 else 50
+
+        def fwd_bwd(fn):
+            return lambda: torch.autograd.grad(fn(q, k, v), (q, k, v), g)
+
+        ms, plain_ms, t = in_turns(
+            fwd_bwd(lambda q, k, v: flash_attention_reference(q, k, v, causal)),
+            fwd_bwd(lambda q, k, v: flash_sdpa(q, k, v, causal)), iters)
+        lib_ms = cuda_ms(fwd_bwd(lambda q, k, v: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal)), iters)
+        # forward 4 and backward 10 operations per query-key pair and d (the
+        # backward recomputes the scores, then dv, dp, dq and dk), the backward
+        # in f32; q, k, v and g read once, out, dq, dk and dv written once
+        pairs = causal_keys(0 if causal else None, tq, tk)[1]
+        n_ops = {dtype: 4 * bh * pairs * 64}
+        n_ops[torch.float32] = n_ops.get(torch.float32, 0) + 10 * bh * pairs * 64
+        b_ms, by = bound_ms(nbytes(q, k, v, g, out, *grads), n_ops, dtype)
+        log(f"[train-kernel] flash_sdpa ({bh}, {tq}x{tk}, 64) {str(dtype)[6:]} causal={causal}, "
+            f"forward and backward: output max_abs_err {err:.3e} (atol {K1_TOL[dtype][0]:.0e}, "
+            f"rtol {K1_TOL[dtype][1]:.1e}), gradients max_abs_err {grad_err:.3e} (atol "
+            f"{K1C_GRAD_TOL[dtype][0]:.0e}, rtol {K1C_GRAD_TOL[dtype][1]:.1e}); kernel route "
+            f"{ms:.4f} ms ({t[1]:.4f}, {t[2]:.4f}), plain {plain_ms:.4f} ms ({t[0]:.4f}, "
+            f"{t[3]:.4f}), F.scaled_dot_product_attention forward and backward {lib_ms:.4f} ms; "
+            f"bound {b_ms:.4f} ms ({by}); {card}")
+        if not ok:
+            raise AssertionError(f"flash_sdpa ({bh}, {tq}x{tk}) {dtype} causal={causal} "
+                                 f"disagrees with autograd of its plain version")
+        rows[f"k1c-{tq}-{str(dtype)[6:]}"] = {
+            "max_abs_err": max(err, grad_err), "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": by, "library_ms": lib_ms}
+        del q, k, v, g, out, grads, ref_grads, q32, k32, v32
+        torch.cuda.empty_cache()
+
+
+def _k1_f32_case(card: str, gen, rows: dict) -> None:
+    """K1c's forward alone, K1's f32 kernel, at the training path's encoder
+    shape (large-v3 at batch 2): the kernel the train step launches."""
+    q, k, v = (torch.randn(2 * 20, 1500, 64, device="cuda", generator=gen) for _ in range(3))
+    out = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    ok, err = _within(out, flash_attention_reference(q, k, v), K1_TOL[torch.float32])
+    ms, plain_ms, t = in_turns(lambda: flash_attention_reference(q, k, v),
+                               lambda: flash_attention(q, k, v), 10)
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), 10)  # TF32 off
+    n_ops = 4 * q.shape[0] * 1500 * 1500 * 64
+    b_ms, by = bound_ms(nbytes(q, k, v, out), n_ops, torch.float32)
+    log(f"[train-kernel] flash_attention f32 forward (40, 1500x1500, 64): max_abs_err "
+        f"{err:.3e} (atol {K1_TOL[torch.float32][0]:.0e}, rtol {K1_TOL[torch.float32][1]:.1e}); "
+        f"kernel {ms:.4f} ms ({t[1]:.4f}, {t[2]:.4f}), {n_ops / (ms * 1e-3) / 1e12:.1f} "
+        f"TFLOP/s, plain {plain_ms:.4f} ms ({t[0]:.4f}, {t[3]:.4f}), "
+        f"F.scaled_dot_product_attention {lib_ms:.4f} ms; bound {b_ms:.4f} ms ({by}); {card}")
+    if not ok:
+        raise AssertionError(f"flash_attention f32 (40, 1500) disagrees with its plain "
+                             f"version: max_abs_err {err}")
+    rows["k1-f32"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                      "bound_by": by, "library_ms": lib_ms}
+
+
+def _k1b_cases(card: str, gen, rows: dict) -> None:
+    for bh, t, causal, dtype in K1B_CASES:
+        q, k, v = (torch.randn(bh, t, 64, device="cuda", generator=gen).to(dtype)
+                   for _ in range(3))
+        out = flash_attention(q, k, v, causal=causal, qk_int8=True)
+        torch.cuda.synchronize()
+        ok, err = _within(out, flash_attention_int8_reference(q, k, v, causal), K1B_TOL[dtype])
+        ms, plain_ms, tt = in_turns(
+            lambda: flash_attention_int8_reference(q, k, v, causal),
+            lambda: flash_attention(q, k, v, causal=causal, qk_int8=True), 10)
+        # the int8 score dot and the PV product in v's type, over the pairs
+        # the mask lets through
+        pairs = causal_keys(0 if causal else None, t, t)[1]
+        b_ms, by = bound_ms(nbytes(q, k, v, out),
+                            {torch.int8: 2 * bh * pairs * 64, dtype: 2 * bh * pairs * 64}, dtype)
+        log(f"[train-kernel] flash_attention qk_int8 ({bh}, {t}x{t}, 64) {str(dtype)[6:]} "
+            f"causal={causal}: max_abs_err {err:.3e} (atol {K1B_TOL[dtype][0]:.0e}, rtol "
+            f"{K1B_TOL[dtype][1]:.1e}); kernel {ms:.4f} ms ({tt[1]:.4f}, {tt[2]:.4f}), plain "
+            f"{plain_ms:.4f} ms ({tt[0]:.4f}, {tt[3]:.4f}); bound {b_ms:.4f} ms ({by}); {card}")
+        if not ok:
+            raise AssertionError(f"flash_attention qk_int8 ({bh}, {t}) {dtype} causal={causal} "
+                                 f"disagrees with its plain version: max_abs_err {err}")
+        rows[f"k1b-{str(dtype)[6:]}-{'causal' if causal else 'full'}"] = {
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": by, "library_ms": None}
+        del q, k, v, out
+    torch.cuda.empty_cache()
+
+
+def phase_train_kernels(card: str) -> tuple:
+    """K1c and K1b against their plain versions; returns (a row per case,
+    the launches of K1b's entry-point run)."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rows = {}
+    _k1c_cases(card, gen, rows)
+    _k1_f32_case(card, gen, rows)
+    _k1b_cases(card, gen, rows)
+    q, k, v = (torch.randn(8, 20, 1500, 64, device="cuda", generator=gen).to(torch.bfloat16)
+               for _ in range(3))
+    _zero_launches()
+    out = ops.sdpa(q, k, v, use_flash=True, qk_int8=True)
+    entry = _read_launches()
+    torch.cuda.synchronize()
+    if (entry["k1b"] != 1 or entry["k1"] or entry["k1_f32"]
+            or not torch.isfinite(out.float()).all()):
+        raise AssertionError(f"ops.sdpa(use_flash=True, qk_int8=True) launches {entry}")
+    log(f"[train-kernel] ops.sdpa(use_flash=True, qk_int8=True) on (8, 20, 1500, 64) bf16: "
+        f"launches {entry}")
+    return rows, entry
+
+
+def _train_config() -> WhisperConfig:
+    """The parity phases' small model (d_head 64), English-only."""
+    return dataclasses.replace(PRESETS["tiny.en"], n_audio_state=128, n_audio_head=2,
+                               n_audio_layer=2, n_text_state=128, n_text_head=2,
+                               n_text_layer=2, f16=0)
+
+
+def train_pairs(n: int, seed: int):
+    """n synthetic 30 s clips, each with a transcript of the random model's
+    own token strings (``tok<id>``: 40 tokens, a 64-token bucket)."""
+    rng = np.random.default_rng(seed)
+    return [(synthetic_audio(SAMPLE_RATE * 30, seed=seed + i),
+             "".join(f"tok{t}" for t in rng.integers(1000, 40000, 40))) for i in range(n)]
+
+
+def phase_train_parity(card: str) -> None:
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        raise AssertionError("TF32 must be off for the f32 parity of a train step")
+    cfg = _train_config()
+    models = {dev: random_model(cfg, seed=11, device=dev, on_device=False)
+              for dev in ("cpu", "cuda")}
+    batch = next(finetune_module.make_batches(models["cpu"], train_pairs(2, 40), 2))
+    optimizer = make_optimizer(1e-3)
+    losses, grads = {}, {}
+    _zero_launches()
+    for dev, m in models.items():
+        state = init_train_state(m.params, optimizer)
+        state, loss = make_train_step(cfg, optimizer)(state, *(t.to(dev) for t in batch))
+        losses[dev] = loss.item()
+        grads[dev] = [p.grad.cpu() for p in leaves(state.params)]
+    n = _read_launches()
+    loss_rel = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
+    grad_rel = max(((gc - gg).abs().max() / gc.abs().max().clamp_min(1e-30)).item()
+                   for gc, gg in zip(grads["cpu"], grads["cuda"]))
+    log(f"[train-parity] one f32 train step (d128, 2 + 2 layers, batch 2, T "
+        f"{batch[1].shape[1]}), TF32 off for matmul and cuDNN: loss cpu {losses['cpu']:.6f} "
+        f"cuda {losses['cuda']:.6f}, max rel diff {loss_rel:.3e}; gradients over "
+        f"{len(grads['cpu'])} leaves, max rel diff {grad_rel:.3e} (tol {TRAIN_PARITY_REL:.0e}); "
+        f"launches on cuda {n}; {card}")
+    if not (loss_rel <= TRAIN_PARITY_REL and grad_rel <= TRAIN_PARITY_REL):
+        raise AssertionError("a train step differs between cpu and cuda")
+    if n["k1_f32"] != cfg.n_audio_layer + cfg.n_text_layer or n["k1"]:
+        raise AssertionError(f"the cuda train step did not run K1's f32 kernel once per "
+                             f"attention layer: {n}")
+
+
+def phase_train(card: str) -> dict:
+    """finetune of large-v3 in f32 for 4 steps; returns its launches."""
+    cfg = PRESETS["large-v3"]
+    t0 = time.perf_counter()
+    model = random_model(cfg, seed=0, dtype=torch.float32, device="cuda")
+    torch.cuda.synchronize()
+    log(f"[train] random large-v3 f32 drawn on the card in {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    pairs = train_pairs(2, 300)
+    # The step is wrapped to read each step's loss, wall time and launches;
+    # it hands on to the real one.
+    steps, real = [], finetune_module.make_train_step
+
+    def timed(cfg_, optimizer):
+        step_fn = real(cfg_, optimizer)
+
+        def run(state, *batch):
+            before = _read_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, loss = step_fn(state, *batch)
+            loss = loss.item()  # waits for the step
+            n = _read_launches()
+            steps.append((loss, time.perf_counter() - t0, n["k1_f32"] - before["k1_f32"],
+                          n["k1"] - before["k1"], batch[1].shape[1]))
+            return state, loss
+        return run
+
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    finetune_module.make_train_step = timed
+    try:
+        t0 = time.perf_counter()
+        state = finetune_module.finetune(model, pairs, steps=4, batch_size=2, lr=1e-4, warmup=1,
+                                         log_every=100)
+        wall = time.perf_counter() - t0
+    finally:
+        finetune_module.make_train_step = real
+    n = _read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    n_params = sum(p.numel() for p in leaves(state.params))
+    for i, (loss, sec, k1_f32, k1_bf16, T) in enumerate(steps, 1):
+        log(f"[train] step {i}: loss {loss:.6f}, {sec * 1e3:.1f} ms, K1 f32 launches {k1_f32} "
+            f"(bf16 {k1_bf16}), tokens (2, {T})")
+    log(f"[train] large-v3 f32, batch 2 x 30 s, 4 steps, lr 1e-4, warm-up 1: {wall:.2f} s in "
+        f"finetune (batches and mel included), steps {[round(x[1] * 1e3, 1) for x in steps]} ms, "
+        f"{n_params / 1e9:.3f} B params; peak {peak / 1e9:.2f} GB; launches {n}; {card}")
+    losses = [x[0] for x in steps]
+    per_forward = cfg.n_audio_layer + cfg.n_text_layer
+    if len(steps) != 4 or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"train losses {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall: {losses}")
+    if any(k1_f32 != per_forward or k1_bf16 for _, _, k1_f32, k1_bf16, _ in steps):
+        raise AssertionError(f"K1's f32 kernel not launched {per_forward} times per "
+                             f"forward: {steps}")
+    del model, state
+    torch.cuda.empty_cache()
+    return n
+
+
 def main() -> None:
     card = phase_device()
     phase_build()
@@ -1070,10 +1366,15 @@ def main() -> None:
     phase_beam_parity(card)
     beam = phase_int8_beam_main_path(card, served)
     host = phase_host_beam(card, model)
+    del model, served
+    torch.cuda.empty_cache()
+    train_rows, k1b_entry = phase_train_kernels(card)
+    phase_train_parity(card)
+    train = phase_train(card)
     src, tpu = "whisper_tpu_torch/csrc/", "whisper_tpu/kernels/"
     entries = [
-        # K1 on both encode paths (phases 5 and 8), with the b8 row; the b64
-        # row beside it with phase 8's launches
+        # K1's bf16 kernel on both encode paths (phases 5 and 8), with the b8
+        # row; the b64 row beside it with phase 8's launches
         ("flash_attention", "flash_attention.cu", "flash_attention.py:141",
          bf16["k1"] + n["k1"], k1["b8"]),
         ("flash_attention.b64", "flash_attention.cu", "flash_attention.py:141", n["k1"],
@@ -1092,6 +1393,16 @@ def main() -> None:
         ("permute_rows_multi", "beam_gather.cu", "beam_gather.py:159", host["k6"],
          rows["k6-bf16"]),  # the host beam's float cache
         ("cow_copy_rows", "beam_gather.cu", "beam_gather.py:280", beam["k7"], rows["k7-96"]),
+        # K1's f32 kernel, the one kernel of the training path (phase 15),
+        # alone; then K1c, its forward and the plain backward, at the same
+        # shape: the same launches, every one through flash_sdpa
+        ("flash_attention.f32", "flash_attention.cu", "flash_attention.py:141",
+         train["k1_f32"], train_rows["k1-f32"]),
+        ("flash_sdpa", "flash_attention.cu", "flash_attention.py:183", train["k1_f32"],
+         train_rows["k1c-1500-float32"]),
+        # K1b on no model path: the launches of its entry point, ops.sdpa
+        ("flash_attention.qk_int8", "flash_attention.cu", "flash_attention.py:141",
+         k1b_entry["k1b"], train_rows["k1b-bfloat16-full"]),
     ]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src + source, "replaces": tpu + replaces,

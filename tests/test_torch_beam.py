@@ -96,7 +96,7 @@ def test_host_greedy_matches_jax(setup):
     ref = jax_decode_full(jparams, cfg, jvocab, enc.cross_k, enc.cross_v, JaxOptions(**kw))
     out = decode_full(decoder, vocab, ck, cv, DecodingOptions(**kw), use_device_loop=False)
     _assert_results_match(out, ref)
-    device = decode_full(decoder, vocab, ck, cv, DecodingOptions(**kw))
+    device = decode_full(decoder, vocab, ck, cv, DecodingOptions(**kw), use_device_loop=True)
     assert [r.tokens for r in device] == [r.tokens for r in out]
 
 
@@ -143,17 +143,33 @@ def test_device_beam_fork_copies_once_a_step(setup, monkeypatch):
 
     monkeypatch.setattr(device_beam, "cow_copy_rows", copy_spy)
     monkeypatch.setattr(device_beam, "decode_step", step_spy)
-    decode_full(decoder, vocab, ck, cv, DecodingOptions(beam_size=3, sample_len=10))
+    decode_full(decoder, vocab, ck, cv, DecodingOptions(beam_size=3, sample_len=10),
+                use_device_loop=True)
     assert forwards[0] == 32 and set(forwards[1:]) == {1}  # prefill bucket, then steps
     assert len(copies) == len(forwards) - 1
     assert all(n == 2 for n, _ in copies)  # the float cache's K and V
     assert any(not torch.equal(src, torch.arange(src.numel())) for _, src in copies)
 
 
+def test_default_decode_full_with_patience_matches_jax(setup):
+    """decode_full's default route is the host loop, as JAX's: beam with
+    patience gives JAX's results, and a greedy DecodingTask.run ignores
+    use_topk_device (only JAX's beam reads it)."""
+    cfg, jparams, jvocab, enc, decoder, vocab, (ck, cv) = setup
+    kw = dict(beam_size=2, patience=1.0, sample_len=12)
+    ref = jax_decode_full(jparams, cfg, jvocab, enc.cross_k, enc.cross_v, JaxOptions(**kw))
+    _assert_results_match(decode_full(decoder, vocab, ck, cv, DecodingOptions(**kw)), ref)
+    options = DecodingOptions(sample_len=8)
+    plain = DecodingTask(cfg, vocab, options, decoder).run(ck, cv)
+    topk = DecodingTask(cfg, vocab, options, decoder).run(ck, cv, use_topk_device=True)
+    assert [r.tokens for r in topk] == [r.tokens for r in plain]
+
+
 def test_decoding_routes_that_stay_unported(setup):
     cfg, _, _, _, decoder, vocab, (ck, cv) = setup
     with pytest.raises(NotImplementedError, match="top-k"):
-        decode_full(decoder, vocab, ck, cv, DecodingOptions(beam_size=2, patience=1.5))
+        decode_full(decoder, vocab, ck, cv, DecodingOptions(beam_size=2, patience=1.5),
+                    use_device_loop=True)
     with pytest.raises(NotImplementedError, match="best_of"):
         decode_full(decoder, vocab, ck, cv, DecodingOptions(temperature=0.5, best_of=2))
 

@@ -61,6 +61,8 @@ def test_ggml_reader_and_vocab_equal(checkpoint):
         assert getattr(v, field) == getattr(rv, field), field
     assert v.non_speech_tokens() == rv.non_speech_tokens()
     assert v.decode([5, 220, 7, v.token_eot]) == rv.decode([5, 220, 7, rv.token_eot])
+    for text in (" hello <t5> world<t17>", "<t220><t5>é"):
+        assert v.encode(text) == rv.encode(text)
     for n in (51864, 51865, 51866):
         assert vocab.device_special_ids(n) == jax_vocab.device_special_ids(n)
         assert vocab.build_special_ids(n) == jax_vocab.build_special_ids(n)

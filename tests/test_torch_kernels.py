@@ -36,7 +36,7 @@ def test_flash_attention_matches_pallas_interpret(tq, tk, causal):
     # 2e-4: the bound tests/test_kernels.py holds the Pallas kernel to;
     # the two differ only in f32 summation order.
     np.testing.assert_allclose(ours.numpy(), ref, atol=2e-4)
-    assert fa.flash_attention.launches == 0  # no kernel on the CPU
+    assert fa.flash_attention.launches == fa.flash_attention.f32_launches == 0  # no kernel on the CPU
 
 
 def test_flash_attention_rejects_what_the_kernel_cannot_take():

@@ -172,7 +172,8 @@ def test_decode_full_takes_an_int8_cross_memory(models):
     prepared = model.with_params(prepare_serving_params(model.params))
     enc = encode(prepared.encoder, torch.from_numpy(mel), quantize_kv=True)
     out = decode_full(prepared.decoder, prepared.vocab, enc.cross_k, enc.cross_v,
-                      DecodingOptions(sample_len=16, without_timestamps=False))
+                      DecodingOptions(sample_len=16, without_timestamps=False),
+                      use_device_loop=True)
     assert [r.tokens for r in out] == [r.tokens for r in ref]
 
 

@@ -54,6 +54,20 @@
 // f32; the bf16 path rounds the unnormalised probabilities to bf16 for the
 // PV product, which accumulates in f32.
 //
+// The qk_int8 variant (K1b; the TPU kernel's _attn_kernel(qk_int8=True),
+// which the JAX package wires into no model path) quantizes each row of Q and
+// K to int8 (scale max(max|x|, 1e-6) * f32(1/127), codes rint(x / scale)
+// clipped to +-127: the TPU kernel's arithmetic as XLA compiles it) in a
+// first launch, one warp a row, into scratch the wrapper allocates. The
+// attention launch is simple and exact rather than fast, since no model path
+// runs it: one query row per thread, its 64 codes in 16 registers, the key
+// codes in shared memory read as broadcasts, the int32 score by __dp4a
+// (exact, |s| < 2^24), then s32 * (q_scale * D^-0.5) * k_scale in the TPU
+// kernel's order, so the f32 scores equal the plain version's bit for bit.
+// Three passes over the keys (max, sum, output) give the plain version's
+// normalised probabilities exp(s - max) / sum, rounded to v's dtype before
+// the PV product (f32 FMAs), with no online rescaling.
+//
 // Plain C interface, loaded with ctypes by whisper_tpu_torch/kernels/build.py.
 // The host encodes the tensor maps with cuTensorMapEncodeTiled, reached
 // through cudaGetDriverEntryPoint[ByVersion], so no -lcuda is needed.
@@ -595,7 +609,160 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, in
   return cudaGetLastError();
 }
 
+// ------------------------------------------------------- qk_int8 path (K1b)
+
+constexpr int Q8_WARPS = 8;     // rows quantized per block, one warp each
+constexpr int I8_ROWS = 128;    // threads per block = query rows per block
+constexpr int I8_KEYS = 64;     // keys per shared-memory tile
+constexpr float INV_127 = 1.0f / 127.0f;
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+__device__ __forceinline__ int code_of(float x, float scale) {
+  const float r = rintf(__fdiv_rn(x, scale));  // IEEE division, round half to even
+  return static_cast<int>(fminf(fmaxf(r, -127.f), 127.f));
+}
+
+// codes (rows, 64) int8 and scales (rows,) f32 of the (rows, 64) x.
+template <typename T>
+__global__ void __launch_bounds__(32 * Q8_WARPS)
+quantize_rows_kernel(const T* __restrict__ x, int8_t* __restrict__ codes,
+                     float* __restrict__ scales, long long rows) {
+  const long long row = static_cast<long long>(blockIdx.x) * Q8_WARPS + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= rows) return;  // a whole warp leaves together
+  const float a = to_f32(x[row * D + 2 * lane]), b = to_f32(x[row * D + 2 * lane + 1]);
+  float amax = fmaxf(fabsf(a), fabsf(b));
+#pragma unroll
+  for (int off = 16; off; off >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+  const float scale = fmaxf(amax, 1e-6f) * INV_127;
+  char2 c;
+  c.x = static_cast<char>(code_of(a, scale));
+  c.y = static_cast<char>(code_of(b, scale));
+  reinterpret_cast<char2*>(codes + row * D)[lane] = c;
+  if (lane == 0) scales[row] = scale;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(I8_ROWS)
+attention_qk_int8_kernel(const int8_t* __restrict__ q8, const float* __restrict__ qs,
+                         const int8_t* __restrict__ k8, const float* __restrict__ ks,
+                         const T* __restrict__ v, T* __restrict__ o, int tq, int tk, int causal,
+                         float scale) {
+  __shared__ int kc[I8_KEYS * D / 4];  // a tile's key codes, 16 words a key
+  __shared__ float ksc[I8_KEYS];
+  __shared__ float vs[I8_KEYS * D];
+
+  const long long bh = blockIdx.x;
+  const int row = blockIdx.y * I8_ROWS + threadIdx.x;
+  const bool valid = row < tq;
+  int qc[D / 4];
+  const int* qp = reinterpret_cast<const int*>(q8 + (bh * tq + (valid ? row : 0)) * D);
+#pragma unroll
+  for (int i = 0; i < D / 4; ++i) qc[i] = qp[i];
+  const float qscale = qs[bh * tq + (valid ? row : 0)] * scale;  // (q_scale * D^-0.5)
+  // Causal blocks stop at the block's last query row.
+  const int kend = causal ? min(tk, (int)(blockIdx.y + 1) * I8_ROWS) : tk;
+  const int* kb = reinterpret_cast<const int*>(k8 + bh * tk * D);
+  const T* vb = v + bh * tk * D;
+
+  float m = -INFINITY, l = 0.f, acc[D];
+#pragma unroll
+  for (int d = 0; d < D; ++d) acc[d] = 0.f;
+  // pass 0: the row's max score; pass 1: sum of exp(s - max); pass 2: PV
+  for (int pass = 0; pass < 3; ++pass) {
+    for (int t0 = 0; t0 < kend; t0 += I8_KEYS) {
+      const int n = min(I8_KEYS, kend - t0);
+      __syncthreads();  // the previous tile is consumed
+      for (int i = threadIdx.x; i < I8_KEYS * D / 4; i += I8_ROWS)
+        kc[i] = i < n * D / 4 ? kb[(long long)t0 * D / 4 + i] : 0;
+      for (int i = threadIdx.x; i < I8_KEYS; i += I8_ROWS)
+        ksc[i] = i < n ? ks[bh * tk + t0 + i] : 0.f;
+      if (pass == 2)
+        for (int i = threadIdx.x; i < I8_KEYS * D; i += I8_ROWS)
+          vs[i] = i < n * D ? to_f32(vb[(long long)t0 * D + i]) : 0.f;
+      __syncthreads();
+      if (!valid) continue;
+      const int jend = causal ? min(n, row - t0 + 1) : n;  // keys <= row
+      for (int j = 0; j < jend; ++j) {
+        int dot = 0;
+#pragma unroll
+        for (int i = 0; i < D / 4; ++i) dot = __dp4a(qc[i], kc[j * (D / 4) + i], dot);
+        const float s = static_cast<float>(dot) * qscale * ksc[j];
+        if (pass == 0) {
+          m = fmaxf(m, s);
+        } else if (pass == 1) {
+          l += expf(s - m);
+        } else {
+          // the normalised probability, rounded to v's dtype
+          const float p = to_f32(from_f32<T>(__fdiv_rn(expf(s - m), l)));
+          const float4* vr = reinterpret_cast<const float4*>(vs + j * D);
+#pragma unroll
+          for (int d4 = 0; d4 < D / 4; ++d4) {
+            const float4 vv = vr[d4];
+            acc[4 * d4 + 0] = fmaf(p, vv.x, acc[4 * d4 + 0]);
+            acc[4 * d4 + 1] = fmaf(p, vv.y, acc[4 * d4 + 1]);
+            acc[4 * d4 + 2] = fmaf(p, vv.z, acc[4 * d4 + 2]);
+            acc[4 * d4 + 3] = fmaf(p, vv.w, acc[4 * d4 + 3]);
+          }
+        }
+      }
+    }
+  }
+  if (valid) {
+    T* op = o + (bh * tq + row) * D;
+#pragma unroll
+    for (int d = 0; d < D; ++d) op[d] = from_f32<T>(acc[d]);
+  }
+}
+
+template <typename T>
+cudaError_t launch_qk_int8(const void* q, const void* k, const void* v, void* o, void* q8,
+                           void* qs, void* k8, void* ks, int bh, int tq, int tk, int causal,
+                           float scale, cudaStream_t s) {
+  const long long q_rows = static_cast<long long>(bh) * tq, k_rows = static_cast<long long>(bh) * tk;
+  quantize_rows_kernel<T><<<(q_rows + Q8_WARPS - 1) / Q8_WARPS, 32 * Q8_WARPS, 0, s>>>(
+      static_cast<const T*>(q), static_cast<int8_t*>(q8), static_cast<float*>(qs), q_rows);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  quantize_rows_kernel<T><<<(k_rows + Q8_WARPS - 1) / Q8_WARPS, 32 * Q8_WARPS, 0, s>>>(
+      static_cast<const T*>(k), static_cast<int8_t*>(k8), static_cast<float*>(ks), k_rows);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 grid(bh, (tq + I8_ROWS - 1) / I8_ROWS);
+  attention_qk_int8_kernel<T><<<grid, I8_ROWS, 0, s>>>(
+      static_cast<const int8_t*>(q8), static_cast<const float*>(qs),
+      static_cast<const int8_t*>(k8), static_cast<const float*>(ks), static_cast<const T*>(v),
+      static_cast<T*>(o), tq, tk, causal, scale);
+  return cudaGetLastError();
+}
+
 }  // namespace
+
+// The qk_int8 variant: as whisper_flash_attention, with scratch for the
+// codes and scales of every row, q8 (bh, tq, 64) and k8 (bh, tk, 64) int8,
+// qs (bh, tq) and ks (bh, tk) f32. Three launches on `stream`; returns the
+// first cudaError_t that is not success, or 0.
+extern "C" int whisper_flash_attention_qk_int8(const void* q, const void* k, const void* v,
+                                               void* o, void* q8, void* qs, void* k8, void* ks,
+                                               int bh, int tq, int tk, int causal, int is_bf16,
+                                               float scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      is_bf16 ? launch_qk_int8<__nv_bfloat16>(q, k, v, o, q8, qs, k8, ks, bh, tq, tk, causal,
+                                              scale, s)
+              : launch_qk_int8<float>(q, k, v, o, q8, qs, k8, ks, bh, tq, tk, causal, scale, s);
+  return static_cast<int>(err);
+}
 
 // q (bh, tq, 64), k and v (bh, tk, 64), o (bh, tq, 64): contiguous, one dtype
 // (f32 when is_bf16 == 0, bf16 otherwise, 16-byte aligned). Launches on

@@ -146,8 +146,10 @@ class DecodingTask:
         """Decode the windows of the cross memory (L, n_audio, H, D, Ta),
         float or ``QuantKV``, one result per window. Rows are
         group-contiguous (n_audio * n_group of them) and share their
-        window's cross memory."""
-        if use_topk_device:
+        window's cross memory. ``use_topk_device`` concerns only a beam
+        decoder (JAX's device top-k step, not ported: it raises there);
+        any other decoder ignores it, as JAX's does."""
+        if use_topk_device and isinstance(self.decoder, BeamSearchDecoder):
             raise NotImplementedError("the device top-k beam step (topk_step.py) is not "
                                       "ported yet")
         if self.text_decoder is None:
@@ -228,7 +230,7 @@ def _eot_index(seq: List[int], eot: int) -> int:
 
 
 def decode_full(decoder: TextDecoder, vocab: WhisperVocab, cross_k, cross_v,
-                options: DecodingOptions, use_device_loop: bool = True) -> List[DecodingResult]:
+                options: DecodingOptions, use_device_loop: bool = False) -> List[DecodingResult]:
     """Decode encoded windows (cross memory (L, B, H, D, Ta), float or
     ``QuantKV``) with ``options``, one result per window.
 

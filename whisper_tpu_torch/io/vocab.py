@@ -80,6 +80,30 @@ class WhisperVocab:
             self._bpe = ByteBPE(self.id_to_token, self.token_eot)
         return self._bpe
 
+    def encode(self, text: str) -> List[int]:
+        """Text -> token ids: exact BPE when the vocab is a real byte-level
+        BPE table, greedy longest-match otherwise (whisper.cpp's approach,
+        adequate only for synthetic vocabs)."""
+        if self.bpe.valid:
+            return self.bpe.encode(text)
+        data = text.encode("utf-8")
+        tokens: List[int] = []
+        i = 0
+        max_len = max((len(t) for t in self.token_to_id), default=1)
+        while i < len(data):
+            match = None
+            for ln in range(min(max_len, len(data) - i), 0, -1):
+                tid = self.token_to_id.get(data[i: i + ln])
+                if tid is not None and tid < self.token_eot:
+                    match = (tid, ln)
+                    break
+            if match is None:
+                i += 1  # an unencodable byte is skipped (openai never meets one)
+                continue
+            tokens.append(match[0])
+            i += match[1]
+        return tokens
+
     def non_speech_tokens(self) -> List[int]:
         """Tokens suppressed by openai-whisper's SuppressTokens(-1): symbols,
         music/misc markers, never produced in transcription output.

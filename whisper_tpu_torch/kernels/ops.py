@@ -12,6 +12,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from .flash_attention import flash_attention
+
 NEG = -1e30
 
 
@@ -41,9 +43,19 @@ def merge_heads(x: torch.Tensor) -> torch.Tensor:
 
 
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-         mask: torch.Tensor | None = None) -> torch.Tensor:
+         mask: torch.Tensor | None = None, use_flash: bool | None = None,
+         qk_int8: bool = False) -> torch.Tensor:
     """softmax(q kᵀ / sqrt(D) + mask) v over (..., H, T, D) with f32 scores
-    and softmax. ``mask`` is bool (True = attend) or additive."""
+    and softmax. ``mask`` is bool (True = attend) or additive. ``use_flash``
+    takes ``kernels.flash_attention`` (with ``qk_int8``, its int8-score
+    variant), as JAX's ``sdpa`` takes its Pallas kernel; the kernel takes no
+    mask, so a mask goes to the plain product here, and a mask together
+    with ``qk_int8`` raises, as JAX asserts."""
+    if use_flash:
+        if mask is None:
+            return flash_attention(q, k, v, qk_int8=qk_int8)
+        if qk_int8:
+            raise ValueError("qk_int8 is only supported by the kernel (mask=None)")
     d = q.shape[-1]
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * d ** -0.5
     if mask is not None:

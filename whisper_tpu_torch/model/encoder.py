@@ -11,8 +11,10 @@ Port of ``whisper_tpu/model/encoder.py``:
     -> cross-attention K/V for every decoder layer
 
 A Python loop over layers replaces ``lax.scan``/``vmap``. Self-attention
-always goes through ``kernels.flash_attention``: the CUDA kernel on a CUDA
-tensor, its plain version on a CPU tensor. The public layouts are JAX's:
+always goes through K1 (``kernels.flash_attention``): the CUDA kernel on a
+CUDA tensor, its plain version on a CPU tensor. The float block calls it
+through ``flash_sdpa``, so the encoder trains (``training/train.py``);
+without inputs that require grad that is the same kernel call. The public layouts are JAX's:
 cross K/V kv-major (n_text_layer, B, H, D, Ta), K pre-scaled by d^-0.25.
 
 Weights from ``model.quant.quantize_encoder_weights`` (int8 + ``*_scale``)
@@ -31,7 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import WhisperConfig
-from ..kernels.flash_attention import flash_attention
+from ..kernels.flash_attention import flash_attention, flash_sdpa
 from ..kernels.fused_quant import act_quant, gelu_quant, ln_quant
 from ..kernels.ops import gelu, layer_norm, linear, merge_heads, split_heads
 from .decoder import to_kv_major, wo_qlinear
@@ -63,8 +65,8 @@ class EncoderBlock(nn.Module):
         q = linear(y, self.q_w, self.q_b)
         k = linear(y, self.k_w)  # K has no bias
         v = linear(y, self.v_w, self.v_b)
-        o = flash_attention(split_heads(q, h).contiguous(), split_heads(k, h).contiguous(),
-                            split_heads(v, h).contiguous())
+        o = flash_sdpa(split_heads(q, h).contiguous(), split_heads(k, h).contiguous(),
+                       split_heads(v, h).contiguous(), False)
         x = x + linear(merge_heads(o), self.out_w, self.out_b)
         y = layer_norm(x, self.mlp_ln_w, self.mlp_ln_b)
         y = gelu(linear(y, self.mlp0_w, self.mlp0_b), self.gelu_impl)
@@ -103,7 +105,10 @@ class AudioEncoder(nn.Module):
         self.cfg = cfg
         register_weights(self, {k: v for k, v in enc.items() if k != "blocks"})
         register_weights(self, {k: dec_blocks[k] for k in _CROSS_KEYS if k in dec_blocks})
-        blocks = enc["blocks"]
+        # One view per layer from unbind: when the stack trains, its backward
+        # stacks the layers' gradients once, where indexing each layer would
+        # add a zero-filled gradient of the whole stack per layer.
+        blocks = {k: v.unbind(0) for k, v in enc["blocks"].items()}
         self.blocks = nn.ModuleList(
             EncoderBlock({k: v[i] for k, v in blocks.items()}, cfg)
             for i in range(cfg.n_audio_layer))
@@ -151,7 +156,10 @@ def cross_kv_from_hidden(encoder: AudioEncoder, x: torch.Tensor, quantize_kv: bo
     """Cross-attention K/V for every decoder layer, written layer by layer
     into kv-major (n_text_layer, B, H, D, Ta) outputs. With ``quantize_kv``
     each layer is quantized as it is made (the float memory is never whole),
-    and a W8A8 encoder quantizes the hidden state once for all projections."""
+    and a W8A8 encoder quantizes the hidden state once for all projections.
+    When gradients flow (training), the float layers are stacked instead:
+    a layer written into a buffer would copy the whole buffer in its
+    backward."""
     cfg = encoder.cfg
     h = cfg.n_text_head
     # JAX multiplies by the scale rounded to the activation dtype.
@@ -163,27 +171,37 @@ def cross_kv_from_hidden(encoder: AudioEncoder, x: torch.Tensor, quantize_kv: bo
         x_q = act_quant(x)
     k_scale = getattr(encoder, "cross_k_w_scale", None)
     v_scale = getattr(encoder, "cross_v_w_scale", None)
+    k_w, v_w, v_b = (getattr(encoder, name).unbind(0)
+                     for name in ("cross_k_w", "cross_v_w", "cross_v_b"))
+    stack = not quantize_kv and torch.is_grad_enabled() and any(
+        t.requires_grad for t in (x, encoder.cross_k_w, encoder.cross_v_w, encoder.cross_v_b))
 
     if quantize_kv:
         def empty():
             return QuantKV(torch.empty(shape, dtype=torch.int8, device=x.device),
                            torch.empty(shape[:3] + shape[4:], dtype=torch.float32,
                                        device=x.device))
+    elif stack:
+        def empty():
+            return []
     else:
         def empty():
             return torch.empty(shape, dtype=x.dtype, device=x.device)
     cross_k, cross_v = empty(), empty()
     for layer in range(cfg.n_text_layer):
-        k = _cross_linear(x, encoder.cross_k_w[layer],
-                          None if k_scale is None else k_scale[layer], None, x_q) * kscale
-        v = _cross_linear(x, encoder.cross_v_w[layer],
-                          None if v_scale is None else v_scale[layer],
-                          encoder.cross_v_b[layer], x_q)
+        k = _cross_linear(x, k_w[layer], None if k_scale is None else k_scale[layer], None,
+                          x_q) * kscale
+        v = _cross_linear(x, v_w[layer], None if v_scale is None else v_scale[layer],
+                          v_b[layer], x_q)
         for out, t in ((cross_k, k), (cross_v, v)):
             t = to_kv_major(t, h)
             if quantize_kv:
                 q = _quantize_one(t)
                 out.data[layer], out.scale[layer] = q.data, q.scale
+            elif stack:
+                out.append(t)
             else:
                 out[layer] = t
+    if stack:
+        return torch.stack(cross_k), torch.stack(cross_v)
     return cross_k, cross_v

@@ -2,6 +2,7 @@
 
 Port of ``whisper_tpu/model/load.py`` through the port's pure-Python GGML
 reader (``io.ggml.load_ggml``); the native C++ reader is not wired yet.
+``random_model`` builds a model with random weights and no checkpoint.
 """
 
 from __future__ import annotations
@@ -13,12 +14,13 @@ import numpy as np
 import torch
 
 from ..config import WhisperConfig
+from ..frontend.mel import mel_filter_bank
 from ..io.ggml import load_ggml
-from ..io.vocab import WhisperVocab
+from ..io.vocab import WhisperVocab, make_vocab
 from ..utils.logging import StageTimers, get_logger
 from .decoder import TextDecoder
 from .encoder import AudioEncoder
-from .params import Params, params_from_ggml, params_to_torch
+from .params import Params, params_from_ggml, params_to_torch, random_params, random_params_device
 
 log = get_logger("model")
 
@@ -73,3 +75,23 @@ def load_model(path: str, *, device: torch.device | str = "cuda",
     log.info("loaded %s (%s, %s on %s) in %.2fs", path, config.model_type, dtype,
              filters.device, model.timers.totals["load"])
     return model
+
+
+def random_model(config: WhisperConfig, seed: int = 0, dtype: torch.dtype = torch.float32,
+                 device: torch.device | str = "cuda", on_device: bool = True) -> WhisperModel:
+    """A model with random weights (scale 0.02) and a ``tok<i>`` vocabulary,
+    for benchmarks, training runs and tests; no checkpoint. With
+    ``on_device`` the weights are drawn on ``device`` by a seeded
+    ``torch.Generator`` (``random_params_device``: large-v3 needs no host
+    staging); otherwise they are JAX's numpy draws (``random_params``),
+    rounded to ``dtype`` on the device."""
+    if on_device:
+        params = random_params_device(config, seed, dtype, device)
+    else:
+        params = params_to_torch(random_params(config, seed=seed), device, dtype)
+    filters = torch.from_numpy(mel_filter_bank(config.n_mels)).to(device=device,
+                                                                   dtype=torch.float32)
+    tokens = [f"tok{i}".encode() for i in range(config.n_vocab)]
+    return WhisperModel(config=config, params=params, filters=filters,
+                        vocab=make_vocab(config.n_vocab, tokens, config.n_vocab),
+                        encoder=AudioEncoder(params, config), decoder=TextDecoder(params, config))

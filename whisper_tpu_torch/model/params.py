@@ -4,18 +4,21 @@
 assembles the GGML tensors into a nested dict with every per-layer weight
 stacked along a leading layer axis. The port keeps that layout, so both
 packages compute from identical numbers; the encoder and decoder modules
-take per-layer views of the stacked tensors.
+take per-layer views of the stacked tensors. ``random_params`` (numpy,
+JAX's draws) and ``random_params_device`` (torch, on the device) build
+random trees in the same layout.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Callable, Dict
 
 import numpy as np
 import torch
 from torch import nn
 
 from ..config import WhisperConfig
+from ..io.ggml import tensor_schema
 from .quant import _ENC_WEIGHT_KEYS
 
 Params = Dict[str, Any]
@@ -56,20 +59,15 @@ _DEC_BLOCK = dict(
 )
 
 
-def _stack(tensors: Dict[str, np.ndarray], prefix: str, n_layer: int,
-           block_map: Dict[str, str], dtype) -> Dict[str, np.ndarray]:
-    return {field: np.stack([tensors[f"{prefix}.{i}.{suffix}"].astype(dtype)
-                             for i in range(n_layer)])
-            for field, suffix in block_map.items()}
-
-
-def params_from_ggml(tensors: Dict[str, np.ndarray], config: WhisperConfig,
-                     dtype=np.float32) -> Params:
-    """Assemble the named GGML tensors into the model tree (numpy)."""
+def _assemble(t: Callable[[str], Any], stack: Callable, config: WhisperConfig) -> Params:
+    """The model tree from ``t(ggml name)`` (one tensor, already in its
+    dtype), each per-layer weight stacked by ``stack`` along a leading
+    layer axis; numpy arrays and torch tensors alike."""
     c = config
 
-    def t(name):
-        return tensors[name].astype(dtype)
+    def blocks(prefix: str, n_layer: int, block_map: Dict[str, str]):
+        return {field: stack([t(f"{prefix}.{i}.{suffix}") for i in range(n_layer)])
+                for field, suffix in block_map.items()}
 
     return {
         "encoder": {
@@ -80,16 +78,68 @@ def params_from_ggml(tensors: Dict[str, np.ndarray], config: WhisperConfig,
             "conv2_b": t("encoder.conv2.bias").reshape(-1),
             "ln_post_w": t("encoder.ln_post.weight"),
             "ln_post_b": t("encoder.ln_post.bias"),
-            "blocks": _stack(tensors, "encoder.blocks", c.n_audio_layer, _ENC_BLOCK, dtype),
+            "blocks": blocks("encoder.blocks", c.n_audio_layer, _ENC_BLOCK),
         },
         "decoder": {
             "pe": t("decoder.positional_embedding"),
             "te": t("decoder.token_embedding.weight"),
             "ln_w": t("decoder.ln.weight"),
             "ln_b": t("decoder.ln.bias"),
-            "blocks": _stack(tensors, "decoder.blocks", c.n_text_layer, _DEC_BLOCK, dtype),
+            "blocks": blocks("decoder.blocks", c.n_text_layer, _DEC_BLOCK),
         },
     }
+
+
+def params_from_ggml(tensors: Dict[str, np.ndarray], config: WhisperConfig,
+                     dtype=np.float32) -> Params:
+    """Assemble the named GGML tensors into the model tree (numpy)."""
+    return _assemble(lambda name: tensors[name].astype(dtype), np.stack, config)
+
+
+def _random_kind(name: str) -> str:
+    """How a random model fills a tensor: LN weights one, biases zero, the
+    rest drawn."""
+    if name.endswith(("ln.weight", "ln_post.weight")):
+        return "ones"
+    return "zeros" if name.endswith(".bias") else "normal"
+
+
+RANDOM_SCALE = 0.02  # the standard deviation of a random model's drawn weights
+
+
+def random_params(config: WhisperConfig, seed: int = 0, scale: float = RANDOM_SCALE) -> Params:
+    """Random-weight tree (numpy) for tests and benchmarks: the JAX
+    package's ``random_params``, the same numpy draws in the same order over
+    ``tensor_schema``, so one seed gives its weights bit for bit."""
+    rng = np.random.default_rng(seed)
+    tensors = {}
+    for name, (shape, _kind) in tensor_schema(config).items():
+        kind = _random_kind(name)
+        if kind == "normal":
+            tensors[name] = rng.standard_normal(shape).astype(np.float32) * scale
+        else:
+            tensors[name] = (np.ones if kind == "ones" else np.zeros)(shape, dtype=np.float32)
+    return params_from_ggml(tensors, config)
+
+
+def random_params_device(config: WhisperConfig, seed: int, dtype: torch.dtype,
+                         device: torch.device | str) -> Params:
+    """``random_params``'s distribution drawn on ``device`` by a seeded
+    ``torch.Generator``, tensor by tensor, so a large model needs no host
+    staging. torch's draws, not numpy's: the values differ from
+    ``random_params`` (as JAX's on-device draws differ from its numpy ones)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    shapes = {name: shape for name, (shape, _kind) in tensor_schema(config).items()}
+
+    def draw(name: str) -> torch.Tensor:
+        kind, shape = _random_kind(name), shapes[name]
+        if kind == "normal":
+            x = torch.randn(shape, generator=gen, device=device,
+                            dtype=torch.float32) * RANDOM_SCALE
+            return x.to(dtype)
+        return (torch.ones if kind == "ones" else torch.zeros)(shape, dtype=dtype, device=device)
+
+    return _assemble(draw, torch.stack, config)
 
 
 def params_to_torch(params: Params, device: torch.device | str,

@@ -9,7 +9,7 @@ greedy decode, and one 16-token int8 device beam (32 windows x beam 5 over
 the first 32 windows' cross memory, as ``make_serving_step(beam_size=5)``
 decodes), each after a warm run. For each it prints the wall time, the
 device time and the busy share, and the op table goes to
-``build/profile/profile_int8_<name>.txt``.
+``build/profile/profile_<name>.txt``.
 
 Device time counts the device's own events (kernels, memcpy, memset) once
 each, as the table's "Self CUDA time total" does. The operator rows (aten::*)
@@ -42,7 +42,7 @@ def report(name: str, prof, wall: float, card: str) -> None:
     for e in sorted(device, key=lambda e: e.self_device_time_total, reverse=True)[:14]:
         print(f"[profile]   {e.self_device_time_total / 1e3:9.2f} ms  x{e.count:<6} {e.key[:90]}")
     OUT.mkdir(parents=True, exist_ok=True)
-    (OUT / f"profile_int8_{name}.txt").write_text(
+    (OUT / f"profile_{name}.txt").write_text(
         events.table(sort_by="self_device_time_total", row_limit=60))
 
 
