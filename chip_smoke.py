@@ -56,33 +56,38 @@ then exits non-zero without the final "ok" line:
    over 4 clips, twice in the same way: K5 at every forward, K6 at every
    step whose beam sources moved (counted in the first run).
 
-13. train kernels: flash_sdpa (K1c: the K1 forward, the closed-form
-   backward) forward and backward against autograd of the plain version at
-   the training path's shapes (large-v3 encoder at batch 2, f32 and bf16;
-   its causal decoder over a 64-token bucket), and flash_attention's
-   qk_int8 variant (K1b) against its plain version at the encoder's
-   (160, 1500, 64), bf16 and f32, causal or not; timed in turns, with
-   F.scaled_dot_product_attention's forward and backward beside K1c, and
-   K1c's forward alone (K1's f32 kernel) beside the plain version and
+13. train kernels: flash_sdpa (K1c: the K1 forward writing its row
+   statistics, the fused backward kernel) forward and backward against
+   autograd of the plain version at the training path's shapes (large-v3
+   encoder at batch 2, f32 and bf16; its causal decoder over a 64-token
+   bucket), and the backward kernel alone against the plain backward
+   (flash_sdpa_backward) on the same (q, k, v, out, lse, g), and
+   flash_attention's qk_int8 variant (K1b) against its plain version at the
+   encoder's (160, 1500, 64), bf16 and f32, causal or not; timed in turns,
+   with F.scaled_dot_product_attention's forward and backward beside K1c
+   and its backward alone beside the backward kernel, and K1c's forward
+   alone (K1's f32 kernel) beside the plain version and
    F.scaled_dot_product_attention at the encoder's (40, 1500, 64) f32. K1b
    is then driven once through its entry point, ops.sdpa(use_flash=True,
    qk_int8=True).
 14. train parity: one train step of a small f32 model (random weights from
    a seed, d_head 64) on the CPU (plain versions) and on the card (the
-   kernels): the loss and every gradient leaf must agree.
+   kernels): the loss and every gradient leaf must agree, and the card's
+   step launches K1's f32 kernel and the backward kernel once per layer.
 15. train main path: large-v3 in f32 with random weights drawn on the card,
    finetune over two synthetic 30 s pairs at batch 2 for 4 steps (lr 1e-4,
    warm-up 1): every loss finite, the last below the first, K1's f32 kernel
-   launched 2 x 32 times per forward (all through flash_sdpa: flash_attention
-   raises when a gradient is asked of it) and its bf16 kernel never; ms per
-   step and peak memory.
+   and the backward kernel each launched 2 x 32 times per step (all through
+   flash_sdpa: flash_attention raises when a gradient is asked of it), the
+   bf16 kernel and the plain backward never; ms per step and peak memory.
 
 The line before the last is the kernels JSON: every kernel with its
 main-path launches, error against its plain version, kernel, plain and
 library times, and its bound (bytes over 3.35 TB/s or operations over the
 peak rate of their type, whichever is larger; under a causal mask only the
-keys it lets through count). It imports nothing of jax
-and nothing of the JAX package. TF32 is switched off for matmuls and cuDNN
+keys it lets through count; the split-TF32 kernels' f32 operations at the
+smaller of 67 TFLOP/s of f32 and three TF32 products at 495 TFLOP/s). It
+imports nothing of jax and nothing of the JAX package. TF32 is switched off for matmuls and cuDNN
 convolutions, so the f32 comparisons are full f32.
 """
 
@@ -112,9 +117,12 @@ from whisper_tpu_torch.kernels.cross_attention_int8 import (cross_attention_int8
                                                             cross_attention_int8_reference)
 from whisper_tpu_torch.kernels.decode_attention import (cached_attention,
                                                         cached_attention_reference, causal_mask)
-from whisper_tpu_torch.kernels.flash_attention import (flash_attention,
+from whisper_tpu_torch.kernels import flash_attention as flash_attention_module
+from whisper_tpu_torch.kernels.flash_attention import (flash_attention, flash_attention_backward,
                                                        flash_attention_int8_reference,
-                                                       flash_attention_reference, flash_sdpa)
+                                                       flash_attention_lse,
+                                                       flash_attention_reference, flash_sdpa,
+                                                       flash_sdpa_backward)
 from whisper_tpu_torch.kernels import ops
 from whisper_tpu_torch.kernels.ops import gelu, layer_norm
 from whisper_tpu_torch.model import decoder as decoder_module
@@ -195,14 +203,16 @@ K1B_TOL = {torch.float32: (2e-5, 1e-5), torch.bfloat16: (1e-3, 2 ** -7)}
 # in other orders; the loss and each gradient leaf relative to its largest
 # element. The CPU tests hold the port to JAX at 1e-5 of the same measure.
 TRAIN_PARITY_REL = 1e-4
-KERNELS = ("flash_attention", "fused_quant", "cross_attention_int8", "decode_attention",
-           "beam_gather")
+KERNELS = ("flash_attention", "flash_attention_bwd", "fused_quant", "cross_attention_int8",
+           "decode_attention", "beam_gather")
 INT8_PATH = ("k1", "act", "ln", "gelu", "k4", "k4_self")  # the int8 greedy step's kernels
 # The card's published peaks (NVIDIA's H100 SXM data sheet, dense rates):
 # device memory rate, and operations per second by the type the kernel
-# computes in (bf16 on the tensor cores, f32 on CUDA cores).
+# computes in (bf16 on the tensor cores, f32 on CUDA cores; TF32 for the
+# split-TF32 kernels, see bound_ms).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12, torch.int8: 1979e12}
+PEAK_TF32 = 495e12
 
 
 def log(msg: str) -> None:
@@ -254,15 +264,24 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(n_bytes: float, n_ops: float, dtype) -> tuple:
+def bound_ms(n_bytes: float, n_ops: float, dtype, split_tf32: bool = False) -> tuple:
     """(the least time the card could take, in ms; "bytes" or "operations",
     whichever bounds it): each input read once and each output written once
     over the memory rate, against the operations over the peak of their
     type. ``n_ops`` may be a {dtype: operations} dict for work in several
-    types."""
+    types. With ``split_tf32`` (K1's f32 kernel and the K1c backward, which
+    run each f32 product as three TF32 products on the tensor cores) the f32
+    operations take the smaller of two figures, f32 at 67 TFLOP/s and three
+    TF32 products at 495 TFLOP/s, so that no row reads faster than its
+    bound."""
     ops_by_type = n_ops if isinstance(n_ops, dict) else {dtype: n_ops}
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = sum(n / PEAK_OPS[t] for t, n in ops_by_type.items()) * 1e3
+    t_ops = 0.0
+    for t, n in ops_by_type.items():
+        sec = n / PEAK_OPS[t]
+        if split_tf32 and t == torch.float32:
+            sec = min(sec, 3 * n / PEAK_TF32)
+        t_ops += sec * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -362,7 +381,7 @@ def phase_kernel(card: str) -> dict:
         ms, plain_ms, (t_plain1, t_k1, t_k2, t_plain2) = in_turns(plain, kern, iters)
         # only the query-key pairs the causal mask lets through
         n_ops = 4 * b * h * causal_keys(0 if causal else None, tq, tk)[1] * 64
-        bound, by = bound_ms(nbytes(q, k, v, out), n_ops, dtype)
+        bound, by = bound_ms(nbytes(q, k, v, out), n_ops, dtype, split_tf32=True)
         log(f"[kernel] flash_attention ({b * h}, {tq}x{tk}, 64) {str(dtype)[6:]} causal={causal}: "
             f"max_abs_err {err:.3e} (atol {atol:.0e}, rtol {rtol:.1e}); kernel {ms:.4f} ms "
             f"({t_k1:.4f}, {t_k2:.4f}), plain {plain_ms:.4f} ms ({t_plain1:.4f}, {t_plain2:.4f}); "
@@ -371,14 +390,15 @@ def phase_kernel(card: str) -> dict:
         if not ok:
             raise AssertionError(f"flash_attention disagrees with its plain version: "
                                  f"max_abs_err {err}, atol {atol}, rtol {rtol}")
-        if dtype == torch.bfloat16 and tq == tk == 1500 and b in (8, 64):
+        if tq == tk == 1500 and b in (8, 64):  # TF32 off: the f32 library call is f32 too
             lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), iters)
-            log(f"[kernel] flash_attention ({b * h}, {tq}x{tk}, 64) bf16: kernel {ms:.4f} ms, "
-                f"F.scaled_dot_product_attention {lib_ms:.4f} ms "
+            log(f"[kernel] flash_attention ({b * h}, {tq}x{tk}, 64) {str(dtype)[6:]}: kernel "
+                f"{ms:.4f} ms, F.scaled_dot_product_attention {lib_ms:.4f} ms "
                 f"({n_ops / (lib_ms * 1e-3) / 1e12:.1f} TFLOP/s), kernel / library "
                 f"{ms / lib_ms:.2f}; bound {bound:.4f} ms ({by}); {card}")
-            main[f"b{b}"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                             "bound_ms": bound, "bound_by": by, "library_ms": lib_ms}
+            if dtype == torch.bfloat16:
+                main[f"b{b}"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                                 "bound_ms": bound, "bound_by": by, "library_ms": lib_ms}
         del q, k, v, out, ref, diff
         torch.cuda.empty_cache()  # the b64 plain version held ~29 GB of scores
     return main
@@ -715,6 +735,7 @@ def _leaves(tree, prefix=""):
 
 def _zero_launches() -> None:
     flash_attention.launches = flash_attention.f32_launches = flash_attention.int8_launches = 0
+    flash_sdpa.bwd_launches = 0
     fused_quant.act_quant.launches = fused_quant.ln_quant.launches = 0
     fused_quant.gelu_quant.launches = 0
     cross_attention_int8.launches = cross_attention_int8.masked_launches = 0
@@ -724,7 +745,8 @@ def _zero_launches() -> None:
 
 def _read_launches() -> dict:
     return {"k1": flash_attention.launches, "k1_f32": flash_attention.f32_launches,
-            "k1b": flash_attention.int8_launches, "act": fused_quant.act_quant.launches,
+            "k1b": flash_attention.int8_launches, "k1c_bwd": flash_sdpa.bwd_launches,
+            "act": fused_quant.act_quant.launches,
             "ln": fused_quant.ln_quant.launches, "gelu": fused_quant.gelu_quant.launches,
             "k4": cross_attention_int8.launches, "k4_self": cross_attention_int8.masked_launches,
             "k5": cached_attention.launches, "k6": beam_gather.permute_rows_multi.launches,
@@ -1137,6 +1159,18 @@ def _k1c_cases(card: str, gen, rows: dict) -> None:
         for name, got, want in zip("qkv", grads, ref_grads):
             g_ok, g_err = _within(got, want, K1C_GRAD_TOL[dtype])
             ok, grad_err = ok and g_ok, max(grad_err, g_err)
+        # the backward kernel alone against the plain backward, on the same
+        # (q, k, v, out, lse, g) from the kernel forward
+        qd, kd, vd = (t.detach() for t in (q, k, v))
+        fwd_out, lse = flash_attention_lse(qd, kd, vd, causal)
+        bwd = flash_attention_backward(qd, kd, vd, fwd_out, lse, g, causal)
+        torch.cuda.synchronize()
+        plain_bwd = flash_sdpa_backward(qd, kd, vd, fwd_out, lse, g, causal)
+        bwd_err = 0.0
+        for got, want in zip(bwd, plain_bwd):
+            b_ok, b_err = _within(got, want, K1C_GRAD_TOL[dtype])
+            ok, bwd_err = ok and b_ok, max(bwd_err, b_err)
+        del plain_bwd
         iters = 5 if tq * tk > 1e6 else 50
 
         def fwd_bwd(fn):
@@ -1147,27 +1181,47 @@ def _k1c_cases(card: str, gen, rows: dict) -> None:
             fwd_bwd(lambda q, k, v: flash_sdpa(q, k, v, causal)), iters)
         lib_ms = cuda_ms(fwd_bwd(lambda q, k, v: F.scaled_dot_product_attention(
             q, k, v, is_causal=causal)), iters)
+        bwd_ms, plain_bwd_ms, tb = in_turns(
+            lambda: flash_sdpa_backward(qd, kd, vd, fwd_out, lse, g, causal),
+            lambda: flash_attention_backward(qd, kd, vd, fwd_out, lse, g, causal), iters)
+        # the library's backward alone: autograd of one F.scaled_dot_product_attention output
+        lib_out = F.scaled_dot_product_attention(q, k, v, is_causal=causal)
+        lib_bwd_ms = cuda_ms(lambda: torch.autograd.grad(lib_out, (q, k, v), g,
+                                                         retain_graph=True), iters)
+        del lib_out
         # forward 4 and backward 10 operations per query-key pair and d (the
-        # backward recomputes the scores, then dv, dp, dq and dk), the backward
+        # backward recomputes the scores, then dv, dp, dk and dq), the backward
         # in f32; q, k, v and g read once, out, dq, dk and dv written once
+        # (the backward alone also reads out and lse)
         pairs = causal_keys(0 if causal else None, tq, tk)[1]
         n_ops = {dtype: 4 * bh * pairs * 64}
         n_ops[torch.float32] = n_ops.get(torch.float32, 0) + 10 * bh * pairs * 64
-        b_ms, by = bound_ms(nbytes(q, k, v, g, out, *grads), n_ops, dtype)
-        log(f"[train-kernel] flash_sdpa ({bh}, {tq}x{tk}, 64) {str(dtype)[6:]} causal={causal}, "
-            f"forward and backward: output max_abs_err {err:.3e} (atol {K1_TOL[dtype][0]:.0e}, "
-            f"rtol {K1_TOL[dtype][1]:.1e}), gradients max_abs_err {grad_err:.3e} (atol "
-            f"{K1C_GRAD_TOL[dtype][0]:.0e}, rtol {K1C_GRAD_TOL[dtype][1]:.1e}); kernel route "
-            f"{ms:.4f} ms ({t[1]:.4f}, {t[2]:.4f}), plain {plain_ms:.4f} ms ({t[0]:.4f}, "
-            f"{t[3]:.4f}), F.scaled_dot_product_attention forward and backward {lib_ms:.4f} ms; "
-            f"bound {b_ms:.4f} ms ({by}); {card}")
+        b_ms, by = bound_ms(nbytes(q, k, v, g, out, *grads), n_ops, dtype, split_tf32=True)
+        bwd_b_ms, bwd_by = bound_ms(nbytes(q, k, v, g, out, lse, *grads),
+                                    10 * bh * pairs * 64, torch.float32, split_tf32=True)
+        name = f"({bh}, {tq}x{tk}, 64) {str(dtype)[6:]} causal={causal}"
+        log(f"[train-kernel] flash_sdpa {name}, forward and backward: output max_abs_err "
+            f"{err:.3e} (atol {K1_TOL[dtype][0]:.0e}, rtol {K1_TOL[dtype][1]:.1e}), gradients "
+            f"max_abs_err {grad_err:.3e} (atol {K1C_GRAD_TOL[dtype][0]:.0e}, rtol "
+            f"{K1C_GRAD_TOL[dtype][1]:.1e}); kernel route {ms:.4f} ms ({t[1]:.4f}, {t[2]:.4f}), "
+            f"plain {plain_ms:.4f} ms ({t[0]:.4f}, {t[3]:.4f}), F.scaled_dot_product_attention "
+            f"forward and backward {lib_ms:.4f} ms; bound {b_ms:.4f} ms ({by}); {card}")
+        log(f"[train-kernel] flash_attention_backward {name}: against flash_sdpa_backward on the "
+            f"same (q, k, v, out, lse, g) max_abs_err {bwd_err:.3e} (K1C_GRAD_TOL); kernel "
+            f"{bwd_ms:.4f} ms ({tb[1]:.4f}, {tb[2]:.4f}), plain {plain_bwd_ms:.4f} ms "
+            f"({tb[0]:.4f}, {tb[3]:.4f}), F.scaled_dot_product_attention backward {lib_bwd_ms:.4f} ms; bound "
+            f"{bwd_b_ms:.4f} ms ({bwd_by}); {card}")
         if not ok:
-            raise AssertionError(f"flash_sdpa ({bh}, {tq}x{tk}) {dtype} causal={causal} "
-                                 f"disagrees with autograd of its plain version")
-        rows[f"k1c-{tq}-{str(dtype)[6:]}"] = {
+            raise AssertionError(f"flash_sdpa {name} disagrees with autograd of its plain "
+                                 f"version, or its backward kernel with the plain backward")
+        tag = f"{tq}-{str(dtype)[6:]}"
+        rows[f"k1c-{tag}"] = {
             "max_abs_err": max(err, grad_err), "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": by, "library_ms": lib_ms}
-        del q, k, v, g, out, grads, ref_grads, q32, k32, v32
+        rows[f"k1c-bwd-{tag}"] = {
+            "max_abs_err": bwd_err, "ms": bwd_ms, "plain_ms": plain_bwd_ms, "bound_ms": bwd_b_ms,
+            "bound_by": bwd_by, "library_ms": lib_bwd_ms}
+        del q, k, v, g, out, grads, ref_grads, q32, k32, v32, qd, kd, vd, fwd_out, lse, bwd
         torch.cuda.empty_cache()
 
 
@@ -1182,7 +1236,7 @@ def _k1_f32_case(card: str, gen, rows: dict) -> None:
                                lambda: flash_attention(q, k, v), 10)
     lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), 10)  # TF32 off
     n_ops = 4 * q.shape[0] * 1500 * 1500 * 64
-    b_ms, by = bound_ms(nbytes(q, k, v, out), n_ops, torch.float32)
+    b_ms, by = bound_ms(nbytes(q, k, v, out), n_ops, torch.float32, split_tf32=True)
     log(f"[train-kernel] flash_attention f32 forward (40, 1500x1500, 64): max_abs_err "
         f"{err:.3e} (atol {K1_TOL[torch.float32][0]:.0e}, rtol {K1_TOL[torch.float32][1]:.1e}); "
         f"kernel {ms:.4f} ms ({t[1]:.4f}, {t[2]:.4f}), {n_ops / (ms * 1e-3) / 1e12:.1f} "
@@ -1287,9 +1341,10 @@ def phase_train_parity(card: str) -> None:
         f"launches on cuda {n}; {card}")
     if not (loss_rel <= TRAIN_PARITY_REL and grad_rel <= TRAIN_PARITY_REL):
         raise AssertionError("a train step differs between cpu and cuda")
-    if n["k1_f32"] != cfg.n_audio_layer + cfg.n_text_layer or n["k1"]:
-        raise AssertionError(f"the cuda train step did not run K1's f32 kernel once per "
-                             f"attention layer: {n}")
+    per_forward = cfg.n_audio_layer + cfg.n_text_layer
+    if n["k1_f32"] != per_forward or n["k1c_bwd"] != per_forward or n["k1"]:
+        raise AssertionError(f"the cuda train step did not run K1's f32 kernel and the K1c "
+                             f"backward kernel once per attention layer: {n}")
 
 
 def phase_train(card: str) -> dict:
@@ -1302,8 +1357,14 @@ def phase_train(card: str) -> dict:
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
     pairs = train_pairs(2, 300)
     # The step is wrapped to read each step's loss, wall time and launches;
-    # it hands on to the real one.
+    # it hands on to the real one. The plain backward is wrapped to count its
+    # calls: on the card it must run on no path.
     steps, real = [], finetune_module.make_train_step
+    real_plain_bwd, plain_bwd_calls = flash_attention_module.flash_sdpa_backward, []
+
+    def plain_bwd_spy(*args, **kwargs):
+        plain_bwd_calls.append(args[0].device)
+        return real_plain_bwd(*args, **kwargs)
 
     def timed(cfg_, optimizer):
         step_fn = real(cfg_, optimizer)
@@ -1316,13 +1377,15 @@ def phase_train(card: str) -> dict:
             loss = loss.item()  # waits for the step
             n = _read_launches()
             steps.append((loss, time.perf_counter() - t0, n["k1_f32"] - before["k1_f32"],
-                          n["k1"] - before["k1"], batch[1].shape[1]))
+                          n["k1"] - before["k1"], n["k1c_bwd"] - before["k1c_bwd"],
+                          batch[1].shape[1]))
             return state, loss
         return run
 
     torch.cuda.reset_peak_memory_stats()
     _zero_launches()
     finetune_module.make_train_step = timed
+    flash_attention_module.flash_sdpa_backward = plain_bwd_spy
     try:
         t0 = time.perf_counter()
         state = finetune_module.finetune(model, pairs, steps=4, batch_size=2, lr=1e-4, warmup=1,
@@ -1330,24 +1393,29 @@ def phase_train(card: str) -> dict:
         wall = time.perf_counter() - t0
     finally:
         finetune_module.make_train_step = real
+        flash_attention_module.flash_sdpa_backward = real_plain_bwd
     n = _read_launches()
     peak = torch.cuda.max_memory_allocated()
     n_params = sum(p.numel() for p in leaves(state.params))
-    for i, (loss, sec, k1_f32, k1_bf16, T) in enumerate(steps, 1):
+    for i, (loss, sec, k1_f32, k1_bf16, k1c_bwd, T) in enumerate(steps, 1):
         log(f"[train] step {i}: loss {loss:.6f}, {sec * 1e3:.1f} ms, K1 f32 launches {k1_f32} "
-            f"(bf16 {k1_bf16}), tokens (2, {T})")
+            f"(bf16 {k1_bf16}), K1c backward launches {k1c_bwd}, tokens (2, {T})")
     log(f"[train] large-v3 f32, batch 2 x 30 s, 4 steps, lr 1e-4, warm-up 1: {wall:.2f} s in "
         f"finetune (batches and mel included), steps {[round(x[1] * 1e3, 1) for x in steps]} ms, "
-        f"{n_params / 1e9:.3f} B params; peak {peak / 1e9:.2f} GB; launches {n}; {card}")
+        f"{n_params / 1e9:.3f} B params; peak {peak / 1e9:.2f} GB; launches {n}; plain "
+        f"backward calls {len(plain_bwd_calls)}; {card}")
     losses = [x[0] for x in steps]
     per_forward = cfg.n_audio_layer + cfg.n_text_layer
     if len(steps) != 4 or not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"train losses {losses}")
     if not losses[-1] < losses[0]:
         raise AssertionError(f"the loss did not fall: {losses}")
-    if any(k1_f32 != per_forward or k1_bf16 for _, _, k1_f32, k1_bf16, _ in steps):
-        raise AssertionError(f"K1's f32 kernel not launched {per_forward} times per "
-                             f"forward: {steps}")
+    if any(k1_f32 != per_forward or k1_bf16 or k1c_bwd != per_forward
+           for _, _, k1_f32, k1_bf16, k1c_bwd, _ in steps):
+        raise AssertionError(f"K1's f32 kernel and the K1c backward kernel not launched "
+                             f"{per_forward} times per step: {steps}")
+    if plain_bwd_calls:
+        raise AssertionError(f"the plain backward ran {len(plain_bwd_calls)} times on the card")
     del model, state
     torch.cuda.empty_cache()
     return n
@@ -1393,11 +1461,14 @@ def main() -> None:
         ("permute_rows_multi", "beam_gather.cu", "beam_gather.py:159", host["k6"],
          rows["k6-bf16"]),  # the host beam's float cache
         ("cow_copy_rows", "beam_gather.cu", "beam_gather.py:280", beam["k7"], rows["k7-96"]),
-        # K1's f32 kernel, the one kernel of the training path (phase 15),
-        # alone; then K1c, its forward and the plain backward, at the same
-        # shape: the same launches, every one through flash_sdpa
+        # The training path's kernels (phase 15), at the encoder's shape: K1's
+        # f32 kernel (K1c's forward) alone, K1c's backward kernel alone, and
+        # K1c forward and backward, with the forward's launches, every one
+        # through flash_sdpa
         ("flash_attention.f32", "flash_attention.cu", "flash_attention.py:141",
          train["k1_f32"], train_rows["k1-f32"]),
+        ("flash_sdpa.backward", "flash_attention_bwd.cu", "flash_attention.py:193",
+         train["k1c_bwd"], train_rows["k1c-bwd-1500-float32"]),
         ("flash_sdpa", "flash_attention.cu", "flash_attention.py:183", train["k1_f32"],
          train_rows["k1c-1500-float32"]),
         # K1b on no model path: the launches of its entry point, ops.sdpa

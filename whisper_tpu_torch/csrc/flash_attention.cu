@@ -43,10 +43,22 @@
 //     read from device memory about once and then from L2.
 //     kernels/flash_attention.attention_tile_plan states the same tile plan
 //     in Python for the tests.
-//   * f32 (the parity path): CUDA-core FMAs, one query row per thread, with
-//     the q row and the D = 64 accumulator in registers; every thread of a
-//     warp reads the same key row, so shared-memory reads are broadcasts, and
-//     the online softmax rescales once per CHUNK keys; grid (B*H, q tiles).
+//   * f32 (the training path's forward, K1c): split TF32 on the tensor
+//     cores by mma.sync (attention_tf32.cuh): each product as three TF32
+//     products (hi·hi + hi·lo + lo·hi), ~165 TFLOP/s of f32 work at the
+//     card's 495 TFLOP/s TF32 rate, against 67 TFLOP/s of f32 FMAs on the
+//     CUDA cores, at f32 accuracy. A block owns 128 query rows (eight warps
+//     of 16) and streams 64-key K/V tiles through two cp.async stages, with
+//     an online softmax in f32; P goes from the score accumulators to the
+//     P V product's A fragments in registers, and each tile's P V is summed
+//     apart and added to O in f32 (a tensor-core accumulation chain over
+//     every tile drops low bits). Under causal, tiles wholly
+//     past the block's last row are not loaded and only ragged or diagonal
+//     tiles are masked (attention_tile_plan(tq, tk, causal, 128, 64)).
+//
+// Both kernels write the row statistics lse = m / sqrt(D) + log(l) (f32,
+// (B*H, Tq)) when given a pointer for them, for the K1c backward
+// (flash_attention_bwd.cu); with a null pointer nothing more is written.
 //
 // Masks match the TPU kernel: keys >= tk never take part (the TPU kernel
 // pads K and masks them to -1e30), and the causal rule is key <= q with no
@@ -78,106 +90,12 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "attention_tf32.cuh"
+
 namespace {
 
-constexpr int D = 64;
-constexpr float MASKED = -1e30f;
-
-// ---------------------------------------------------------------- f32 path
-
-constexpr int F32_ROWS = 128;  // threads per block = query rows per block
-constexpr int F32_KEYS = 64;   // keys per shared-memory tile
-constexpr int CHUNK = 8;       // keys per online-softmax rescale
-
-__global__ void __launch_bounds__(F32_ROWS)
-attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ o,
-                     int tq, int tk, int causal, float scale) {
-  __shared__ __align__(16) float ks[F32_KEYS * D];
-  __shared__ __align__(16) float vs[F32_KEYS * D];
-
-  const long long bh = blockIdx.x;
-  const int row = blockIdx.y * F32_ROWS + threadIdx.x;
-  const bool valid = row < tq;
-
-  float qr[D];
-  const float* qp = q + (bh * tq + (valid ? row : 0)) * D;
-#pragma unroll
-  for (int d = 0; d < D; ++d) qr[d] = valid ? qp[d] * scale : 0.f;
-
-  float acc[D];
-#pragma unroll
-  for (int d = 0; d < D; ++d) acc[d] = 0.f;
-  float m = -INFINITY;
-  float l = 0.f;
-
-  // Causal blocks stop at the block's last query row: later keys are masked
-  // for every row of the block.
-  const int kend = causal ? min(tk, (int)(blockIdx.y + 1) * F32_ROWS) : tk;
-  const float* kb = k + bh * tk * D;
-  const float* vb = v + bh * tk * D;
-
-  for (int t0 = 0; t0 < kend; t0 += F32_KEYS) {
-    const int n = min(F32_KEYS, tk - t0);
-    __syncthreads();  // the previous tile is consumed
-    // A tile of n key rows is one contiguous span of n * D elements.
-    for (int i = threadIdx.x; i < F32_KEYS * D; i += F32_ROWS) {
-      const bool in = i < n * D;
-      ks[i] = in ? kb[(long long)t0 * D + i] : 0.f;
-      vs[i] = in ? vb[(long long)t0 * D + i] : 0.f;
-    }
-    __syncthreads();
-
-    for (int j0 = 0; j0 < n; j0 += CHUNK) {
-      float s[CHUNK];
-      float cmax = MASKED;
-#pragma unroll
-      for (int jj = 0; jj < CHUNK; ++jj) {
-        const float4* kr = reinterpret_cast<const float4*>(ks + (j0 + jj) * D);
-        float dot = 0.f;
-#pragma unroll
-        for (int d4 = 0; d4 < D / 4; ++d4) {
-          const float4 kk = kr[d4];
-          dot = fmaf(qr[4 * d4 + 0], kk.x, dot);
-          dot = fmaf(qr[4 * d4 + 1], kk.y, dot);
-          dot = fmaf(qr[4 * d4 + 2], kk.z, dot);
-          dot = fmaf(qr[4 * d4 + 3], kk.w, dot);
-        }
-        const int key = t0 + j0 + jj;
-        const bool ok = key < tk && (!causal || key <= row);
-        s[jj] = ok ? dot : MASKED;
-        cmax = fmaxf(cmax, s[jj]);
-      }
-      const float m_new = fmaxf(m, cmax);
-      const float corr = expf(m - m_new);  // 0 on the first chunk (m = -inf)
-      l *= corr;
-#pragma unroll
-      for (int d = 0; d < D; ++d) acc[d] *= corr;
-#pragma unroll
-      for (int jj = 0; jj < CHUNK; ++jj) {
-        const float p = expf(s[jj] - m_new);
-        l += p;
-        const float4* vr = reinterpret_cast<const float4*>(vs + (j0 + jj) * D);
-#pragma unroll
-        for (int d4 = 0; d4 < D / 4; ++d4) {
-          const float4 vv = vr[d4];
-          acc[4 * d4 + 0] = fmaf(p, vv.x, acc[4 * d4 + 0]);
-          acc[4 * d4 + 1] = fmaf(p, vv.y, acc[4 * d4 + 1]);
-          acc[4 * d4 + 2] = fmaf(p, vv.z, acc[4 * d4 + 2]);
-          acc[4 * d4 + 3] = fmaf(p, vv.w, acc[4 * d4 + 3]);
-        }
-      }
-      m = m_new;
-    }
-  }
-
-  if (valid) {
-    const float inv = 1.f / l;
-    float* op = o + (bh * tq + row) * D;
-#pragma unroll
-    for (int d = 0; d < D; ++d) op[d] = acc[d] * inv;
-  }
-}
+using tf32::D;
+using tf32::LOG2E;
 
 // --------------------------------------------------------------- bf16 path
 
@@ -191,7 +109,6 @@ constexpr int CONSUMERS = 128 * NUM_WG;
 constexpr int THREADS = CONSUMERS + 128;   // and a producer warpgroup
 constexpr int BAR_OFFSET = Q_BYTES + 2 * STAGES * TILE_BYTES;
 constexpr int SMEM_BYTES = BAR_OFFSET + 128 + 1024;  // tiles, barriers, alignment slack
-constexpr float LOG2E = 1.4426950408889634f;
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
@@ -417,8 +334,8 @@ __global__ void __launch_bounds__(THREADS, 1)
 attention_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
                       const __grid_constant__ CUtensorMap k_map,
                       const __grid_constant__ CUtensorMap v_map,
-                      const __grid_constant__ CUtensorMap o_map, int tq, int tk, int causal,
-                      float scale_log2) {
+                      const __grid_constant__ CUtensorMap o_map, float* __restrict__ lse,
+                      int tq, int tk, int causal, float scale, float scale_log2) {
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw)) + 1023) & ~1023u;
   uint8_t* base_ptr = smem_raw + (base - static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw)));
@@ -534,6 +451,12 @@ attention_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
       l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
       l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
     }
+    if (lse != nullptr && t == 0) {  // the row statistics, for the K1c backward
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        if (row0 + 8 * h < tq)
+          lse[static_cast<long long>(bh) * tq + row0 + 8 * h] = m[h] * scale + logf(l[h]);
+    }
     // The output of this warpgroup's 64 rows replaces its Q rows in shared
     // memory (its last S product has completed), in the 128-byte swizzle the
     // tensor map expects: 16-byte chunk c of row r sits at chunk c ^ (r % 8).
@@ -589,8 +512,8 @@ bool tensor_map(CUtensorMap* map, const void* ptr, int bh, int t, int rows) {
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, int bh, int tq,
-                        int tk, int causal, float scale, cudaStream_t s) {
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse, int bh,
+                        int tq, int tk, int causal, float scale, cudaStream_t s) {
   if (encode_tiled() == nullptr) return cudaErrorNotSupported;
   CUtensorMap qm, km, vm, om;
   if (!(tensor_map(&qm, q, bh, tq, BM) && tensor_map(&km, k, bh, tk, BN) &&
@@ -604,8 +527,8 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, in
     configured = true;
   }
   const dim3 grid((tq + BM - 1) / BM, bh);  // q tile fastest: a head's blocks run together
-  attention_bf16_kernel<<<grid, THREADS, SMEM_BYTES, s>>>(qm, km, vm, om, tq, tk, causal,
-                                                          scale * LOG2E);
+  attention_bf16_kernel<<<grid, THREADS, SMEM_BYTES, s>>>(qm, km, vm, om, lse, tq, tk, causal,
+                                                          scale, scale * LOG2E);
   return cudaGetLastError();
 }
 
@@ -765,17 +688,17 @@ extern "C" int whisper_flash_attention_qk_int8(const void* q, const void* k, con
 }
 
 // q (bh, tq, 64), k and v (bh, tk, 64), o (bh, tq, 64): contiguous, one dtype
-// (f32 when is_bf16 == 0, bf16 otherwise, 16-byte aligned). Launches on
-// `stream` and returns the cudaError_t of the launch (0 on success); it does
-// not synchronise.
+// (f32 when is_bf16 == 0, bf16 otherwise, 16-byte aligned); lse (bh, tq) f32
+// or null. Launches on `stream` and returns the cudaError_t of the launch (0
+// on success); it does not synchronise.
 extern "C" int whisper_flash_attention(const void* q, const void* k, const void* v,
-                                       void* o, int bh, int tq, int tk, int causal,
+                                       void* o, float* lse, int bh, int tq, int tk, int causal,
                                        int is_bf16, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) return static_cast<int>(launch_bf16(q, k, v, o, bh, tq, tk, causal, scale, s));
-  const dim3 grid(bh, (tq + F32_ROWS - 1) / F32_ROWS);
-  attention_f32_kernel<<<grid, F32_ROWS, 0, s>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), tq, tk, causal, scale);
-  return static_cast<int>(cudaGetLastError());
+  if (is_bf16)
+    return static_cast<int>(launch_bf16(q, k, v, o, lse, bh, tq, tk, causal, scale, s));
+  const tf32::FwdParams<float> p{static_cast<const float*>(q), static_cast<const float*>(k),
+                                 static_cast<const float*>(v), static_cast<float*>(o), lse,
+                                 nullptr, nullptr, nullptr, tq, tk, causal, scale};
+  return static_cast<int>(tf32::launch_tf32_forward<float, false>(p, bh, s));
 }

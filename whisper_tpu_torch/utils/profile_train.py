@@ -5,8 +5,8 @@
 Draws a random large-v3 in f32 on the card (``random_model``), makes
 chip_smoke.py's training batch (two synthetic 30 s clips with 40-token
 transcripts, a 64-token bucket), runs two warm train steps at lr 1e-4 and
-profiles a third: the forward, the backward (K1c's closed form included)
-and the AdamW update. It prints the wall time, the device time, the busy
+profiles a third: the forward, the backward (K1c's backward kernel
+included) and the AdamW update. It prints the wall time, the device time, the busy
 share and the largest device items, as ``profile_int8`` does, and the op
 table goes to ``build/profile/profile_train_step.txt``.
 """
