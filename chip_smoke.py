@@ -27,7 +27,10 @@ then exits non-zero without the final "ok" line:
    per forward.
 6. int8 kernels: fused_quant (K2 "act", K3 "ln" and "gelu") and
    cross_attention_int8 (K4, cross and causal self) against their plain
-   versions at the int8 main path's shapes, timed in turns as in phase 3;
+   versions at the int8 main path's shapes (K4 also at phase 11's beam fold
+   and at the edges of its key split: 1, 7 and 203 keys), timed in turns as
+   in phase 3, K4's decode shapes also in a CUDA graph, and K4 cross at
+   other cluster sizes than its plan's, each held to the plain version;
    a planted fault (the tanh GELU kernel against the erf plain version) must
    fail the fused_quant bound.
 7. int8 parity: phase 4's checkpoint prepared for serving
@@ -114,6 +117,7 @@ from whisper_tpu_torch.io.ggml import tensor_schema, write_ggml
 from whisper_tpu_torch.kernels import beam_gather, build
 from whisper_tpu_torch.kernels import fused_quant
 from whisper_tpu_torch.kernels.cross_attention_int8 import (cross_attention_int8,
+                                                            cross_attention_int8_plan,
                                                             cross_attention_int8_reference)
 from whisper_tpu_torch.kernels.decode_attention import (cached_attention,
                                                         cached_attention_reference, causal_mask)
@@ -539,6 +543,7 @@ FQ_CASES = [  # (mode, rows, d, dtype): the int8 main path's sites, large-v3 at 
     ("ln", 2 * 1500, 1280, torch.float32),          # the f32 parity path (phase 7)
     ("gelu-erf", 2 * 1500, 5120, torch.float32),
 ]
+BEAM_GROUPS, BEAM = 32, 5  # phase 11: 32 windows x 5 beams = 160 decoder rows
 K4_CASES = [  # (name, batch, heads, tq, keys, n_past, dtype); n_past None: cross
     ("cross", 64, 20, 1, 1500, None, torch.bfloat16),  # decode step, large-v3 b64
     ("cross-t3", 64, 20, 3, 1500, None, torch.bfloat16),  # prefill of the 3-token prompt
@@ -547,7 +552,16 @@ K4_CASES = [  # (name, batch, heads, tq, keys, n_past, dtype); n_past None: cros
     ("self-3", 64, 20, 1, 75, 3, torch.bfloat16),
     ("self-74", 64, 20, 1, 75, 74, torch.bfloat16),
     ("self-t32", 4, 20, 32, 75, 0, torch.bfloat16),  # a 32-token prefill bucket
+    ("cross-beam5", BEAM_GROUPS, 20, BEAM, 1500, None, torch.bfloat16),  # phase 11's beam fold
+    # phase 11's prefill of the 3-token prompt, folded: 15 query rows, two row blocks
+    ("cross-beam-prefill", BEAM_GROUPS, 20, 3 * BEAM, 1500, None, torch.bfloat16),
+    # edges of the key split: one key, keys not a multiple of 4 (rows of K
+    # at odd byte offsets), a count that leaves the last rank short
+    ("cross-c1", 4, 20, 1, 1, None, torch.bfloat16),
+    ("cross-c7", 4, 20, 5, 7, None, torch.float32),
+    ("cross-c203", 4, 20, 3, 203, None, torch.bfloat16),
 ]
+K4_GRAPHED = ("cross", "self")  # also timed in a CUDA graph: device time without the wrapper
 
 
 def _fq_calls(mode: str, x, w, b):
@@ -636,17 +650,21 @@ def phase_int8_kernels(card: str) -> dict:
                                    lambda: cross_attention_int8(*args), 50)
         c_eff, pairs = causal_keys(n_past, tq, c)
         gbps = bsz * h * 2 * 64 * c_eff / (ms * 1e-3) / 1e9
+        # only the keys the mask lets through: codes and scales of K and V
+        b_ms, by = bound_ms(nbytes(q, out) + 2 * bsz * h * c_eff * (64 + 4),
+                            4 * bsz * h * pairs * 64, dtype)
+        plan = cross_attention_int8_plan(c, tq, n_past)
+        graphed = (f"; in a CUDA graph {graph_ms(lambda: cross_attention_int8(*args), 50):.4f} ms"
+                   if name in K4_GRAPHED else "")
         log(f"[int8-kernel] cross_attention_int8 {name} q ({bsz}, {h}, {tq}, 64) "
-            f"{str(dtype)[6:]} over {c} keys, n_past {n_past}: max_abs_err {err:.3e} "
-            f"(atol {atol:.0e}, rtol {rtol:.1e}); kernel {ms:.4f} ms ({t[1]:.4f}, {t[2]:.4f}), "
-            f"plain {plain_ms:.4f} ms ({t[0]:.4f}, {t[3]:.4f}); kernel {gbps:.0f} GB/s of int8 "
+            f"{str(dtype)[6:]} over {c} keys, n_past {n_past}, {plan.ranks} rank(s) of "
+            f"{plan.chunk} keys: max_abs_err {err:.3e} (atol {atol:.0e}, rtol {rtol:.1e}); "
+            f"kernel {ms:.4f} ms ({t[1]:.4f}, {t[2]:.4f}), plain {plain_ms:.4f} ms ({t[0]:.4f}, "
+            f"{t[3]:.4f}){graphed}; bound {b_ms:.4f} ms ({by}); kernel {gbps:.0f} GB/s of int8 "
             f"K/V; {card}")
         if not ok:
             raise AssertionError(f"cross_attention_int8 {name} disagrees with its plain version: "
                                  f"max_abs_err {err}")
-        # only the keys the mask lets through: codes and scales of K and V
-        b_ms, by = bound_ms(nbytes(q, out) + 2 * bsz * h * c_eff * (64 + 4),
-                            4 * bsz * h * pairs * 64, dtype)
         rows[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                       "bound_by": by, "library_ms": None}
     if fused_quant.act_quant.launches == 0 or cross_attention_int8.masked_launches == 0:
@@ -809,7 +827,6 @@ K5_CASES = [  # (name, batch, heads, tq, ctx, n_past, dtype): layer 2 of a (B, 4
     ("b8-prefill-f32", 8, 20, 32, 104, 0, torch.float32),
     ("beam-f32", 20, 20, 1, 448, 40, torch.float32),
 ]
-BEAM_GROUPS, BEAM = 32, 5  # phase 11: 32 windows x 5 beams = 160 decoder rows
 
 
 def _int8_beam_cache(gen, rows: int, ctx: int):
@@ -1455,6 +1472,9 @@ def main() -> None:
          n["k4"] - n["k4_self"], rows["cross"]),
         ("cross_attention_int8.self", "cross_attention_int8.cu", "cross_attention_int8.py:109",
          n["k4_self"], rows["self"]),
+        # K4 cross with the beam fold (5 query rows a window), phase 11's launches
+        ("cross_attention_int8.cross_beam", "cross_attention_int8.cu",
+         "cross_attention_int8.py:109", beam["k4"] - beam["k4_self"], rows["cross-beam5"]),
         # K5 on both bf16 paths: phase 5's greedy batch and phase 12's host beam
         ("cached_attention", "decode_attention.cu", "decode_attention.py:109",
          bf16["k5"] + host["k5"], rows["k5-b8"]),

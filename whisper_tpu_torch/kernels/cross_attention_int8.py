@@ -8,7 +8,10 @@ product with int8 V, whatever q's dtype. (The Pallas kernel rounds it to
 q's dtype, which differs for an f32 q.) On a CUDA tensor it launches the
 kernel in ``csrc/cross_attention_int8.cu``; on a CPU tensor it runs
 ``quant_sdpa``. There is no other route: a CUDA call that the kernel cannot
-take raises.
+take raises. The kernel splits each head's keys across a thread-block
+cluster (``cross_attention_int8_plan``); the ranks agree on the softmax's
+max and sum through distributed shared memory before any rounding, so the
+split leaves ``pv_out``'s numerics as they are.
 
 One kernel serves both decoder sites: cross-attention (``n_past=None``,
 every key) and self-attention over the int8 cache (an int ``n_past``: key
@@ -18,14 +21,57 @@ every key) and self-attention over the int8 cache (an int ``n_past``: key
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from ..model.quant import QuantKV, quant_sdpa
 
 D_HEAD = 64
-_SMEM_LIMIT = 200 * 1024  # shared memory a block may take, of the 227 KB
+ROW_CHOICES = (1, 2, 4, 5, 8)  # query rows a cluster takes (csrc: WHISPER_K4_ROWS)
+MAX_RANKS = 8  # blocks a cluster may have (the portable cluster size)
+MAX_CHUNK = 1024  # keys a rank may hold (csrc: MAX_CHUNK)
+# Keys a rank aims at when the plan chooses the cluster size, for one query
+# row (a greedy step) and for more (a prefill, the beam fold: the logits pass
+# costs more per key). From the cluster sizes chip_smoke.py times (PERF.md).
+KEYS_PER_RANK = 768
+KEYS_PER_RANK_ROWS = 384
+
+
+class K4Plan(NamedTuple):
+    """A launch of K4: ``ranks`` blocks in a cluster per (b, h), rank i
+    holding keys ``ranges[i] = (start, stop)``, ``chunk`` keys apart."""
+
+    ranks: int
+    chunk: int
+    ranges: Tuple[Tuple[int, int], ...]
+
+
+@functools.lru_cache(maxsize=1024)
+def cross_attention_int8_plan(c_len: int, tq: int, n_past: Optional[int] = None,
+                              ranks: Optional[int] = None) -> K4Plan:
+    """How K4 splits one head's keys across a cluster: the keys the call can
+    see (all ``c_len`` for cross-attention, up to ``n_past + tq - 1`` under
+    the causal mask) cut into ``ranks`` contiguous ranges that start on
+    multiples of 4. ``ranks`` defaults to one rank per ``KEYS_PER_RANK`` keys
+    (``KEYS_PER_RANK_ROWS`` for more than one query row), at most
+    ``MAX_RANKS`` (so a self call over 75 keys takes one block);
+    a trailing rank may be short or empty. ``csrc/cross_attention_int8.cu``
+    computes each rank's range from ``chunk`` in the same way."""
+    visible = c_len if n_past is None else min(c_len, n_past + tq)
+    if ranks is None:
+        per = KEYS_PER_RANK if tq == 1 else KEYS_PER_RANK_ROWS
+        ranks = min(MAX_RANKS, -(-visible // per))
+    if not 1 <= ranks <= MAX_RANKS:
+        raise ValueError(f"a K4 cluster takes 1 to {MAX_RANKS} ranks, got {ranks}")
+    chunk = 4 * -(-visible // (4 * ranks))
+    if chunk > MAX_CHUNK:
+        raise ValueError(f"cross_attention_int8 takes at most {MAX_RANKS * MAX_CHUNK} keys, "
+                         f"got {visible}")
+    ranges = tuple((min(i * chunk, visible), min((i + 1) * chunk, visible))
+                   for i in range(ranks))
+    return K4Plan(ranks, chunk, ranges)
 
 
 def cross_attention_int8_reference(q, k8, k_scale, v8, v_scale,
@@ -40,15 +86,12 @@ def cross_attention_int8_reference(q, k8, k_scale, v8, v_scale,
 
 
 def _rows_per_block(t: int, c: int) -> int:
-    rows = 1
-    while rows < min(t, 8):
-        rows *= 2
-    while rows > 1 and 4 * rows * (D_HEAD + c) > _SMEM_LIMIT:
-        rows //= 2
-    if 4 * rows * (D_HEAD + c) > _SMEM_LIMIT:
-        raise ValueError(f"cross_attention_int8 takes at most "
-                         f"{_SMEM_LIMIT // 4 - D_HEAD} keys, got {c}")
-    return rows
+    """Query rows a cluster takes: the fewest of ``ROW_CHOICES`` that hold
+    min(t, 8); raises for more keys than a cluster can hold."""
+    if c > MAX_RANKS * MAX_CHUNK:
+        raise ValueError(f"cross_attention_int8 takes at most {MAX_RANKS * MAX_CHUNK} keys, "
+                         f"got {c}")
+    return next(r for r in ROW_CHOICES if r >= min(t, 8))
 
 
 def _check(q, k8, k_scale, v8, v_scale) -> None:
@@ -82,12 +125,45 @@ def _check(q, k8, k_scale, v8, v_scale) -> None:
                          f"{k_scale.stride()}, {v_scale.stride()}")
 
 
+@functools.cache
+def _entry():
+    """The kernel's C entry point, resolved and typed once per process."""
+    from .build import load_library
+
+    fn = load_library("cross_attention_int8").whisper_attention_int8
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 2
+                   + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(q, k8, k_scale, v8, v_scale, n_past: Optional[int], plan: K4Plan) -> torch.Tensor:
+    """One launch of the kernel over checked CUDA tensors, as ``plan`` splits
+    the keys."""
+    B, H, T, _ = q.shape
+    C = k8.shape[-1]
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        err = _entry()(q.data_ptr(), k8.data_ptr(), k_scale.data_ptr(), v8.data_ptr(),
+                       v_scale.data_ptr(), out.data_ptr(), B, H, T, C, k8.stride(0),
+                       k_scale.stride(0), -1 if n_past is None else n_past,
+                       _rows_per_block(T, C), plan.ranks, plan.chunk,
+                       int(q.dtype == torch.bfloat16), stream)
+    if err != 0:
+        raise RuntimeError(f"cross_attention_int8 kernel launch failed: cudaError {err}")
+    cross_attention_int8.launches += 1
+    cross_attention_int8.masked_launches += n_past is not None
+    return out
+
+
 def cross_attention_int8(q: torch.Tensor, k8: torch.Tensor, k_scale: torch.Tensor,
                          v8: torch.Tensor, v_scale: torch.Tensor,
                          n_past: Optional[int] = None) -> torch.Tensor:
     """softmax((q · k8) · k_scale) · (v8 · v_scale) over (B,H,T,64) q and
     kv-major (B,H,64,C) int8 K/V with (B,H,C) f32 scales; the result has q's
-    dtype. ``cross_attention_int8.launches`` counts kernel launches, and
+    dtype. On the card the keys are split as ``cross_attention_int8_plan``
+    says. ``cross_attention_int8.launches`` counts kernel launches, and
     ``.masked_launches`` those with an ``n_past`` (self-attention)."""
     if q.device.type == "cpu":
         return cross_attention_int8_reference(q, k8, k_scale, v8, v_scale, n_past)
@@ -96,26 +172,8 @@ def cross_attention_int8(q: torch.Tensor, k8: torch.Tensor, k_scale: torch.Tenso
     _check(q, k8, k_scale, v8, v_scale)
     if n_past is not None and n_past < 0:
         raise ValueError(f"n_past must be >= 0, got {n_past}")
-    from .build import load_library
-
-    fn = load_library("cross_attention_int8").whisper_attention_int8
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 2
-                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    B, H, T, _ = q.shape
-    C = k8.shape[-1]
-    out = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k8.data_ptr(), k_scale.data_ptr(), v8.data_ptr(),
-                 v_scale.data_ptr(), out.data_ptr(), B, H, T, C, k8.stride(0),
-                 k_scale.stride(0), -1 if n_past is None else n_past,
-                 _rows_per_block(T, C), int(q.dtype == torch.bfloat16), stream)
-    if err != 0:
-        raise RuntimeError(f"cross_attention_int8 kernel launch failed: cudaError {err}")
-    cross_attention_int8.launches += 1
-    cross_attention_int8.masked_launches += n_past is not None
-    return out
+    plan = cross_attention_int8_plan(k8.shape[-1], q.shape[2], n_past)
+    return _launch(q, k8, k_scale, v8, v_scale, n_past, plan)
 
 
 cross_attention_int8.launches = 0

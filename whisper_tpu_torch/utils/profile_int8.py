@@ -8,7 +8,7 @@ and profiles one W8A8 encode with its int8 cross memory, one 16-token int8
 greedy decode, and one 16-token int8 device beam (32 windows x beam 5 over
 the first 32 windows' cross memory, as ``make_serving_step(beam_size=5)``
 decodes), each after a warm run. For each it prints the wall time, the
-device time and the busy share, and the op table goes to
+device time, the busy share and K4's summed time, and the op table goes to
 ``build/profile/profile_<name>.txt``.
 
 Device time counts the device's own events (kernels, memcpy, memset) once
@@ -39,6 +39,10 @@ def report(name: str, prof, wall: float, card: str) -> None:
                    if e.key in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"))
     print(f"[profile] {name}: wall {wall * 1e3:.1f} ms (profiled), device {busy_ms:.1f} ms, "
           f"busy {busy_ms / (wall * 1e3):.1%}, kernel launches {launches}; {card}", flush=True)
+    k4 = [e for e in device if "attention_int8_kernel" in e.key]
+    print(f"[profile]   K4 (attention_int8_kernel, every instance): "
+          f"{sum(e.self_device_time_total for e in k4) / 1e3:.2f} ms over "
+          f"{sum(e.count for e in k4)} launches", flush=True)
     for e in sorted(device, key=lambda e: e.self_device_time_total, reverse=True)[:14]:
         print(f"[profile]   {e.self_device_time_total / 1e3:9.2f} ms  x{e.count:<6} {e.key[:90]}")
     OUT.mkdir(parents=True, exist_ok=True)
