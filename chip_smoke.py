@@ -25,7 +25,9 @@ then exits non-zero without the final "ok" line:
    load_model + BatchTranscriber.transcribe_batch, with timestamps; the
    decoder's self-attention runs cached_attention (K5) n_text_layer times
    per forward.
-6. int8 kernels: fused_quant (K2 "act", K3 "ln" and "gelu") and
+6. int8 kernels: fused_quant (K2 "act", K3 "ln" and "gelu"; also "act" at
+   gelu's shape, its byte floor, and at the edges of its vector layout: an
+   odd D, a base off a 16-byte boundary) and
    cross_attention_int8 (K4, cross and causal self) against their plain
    versions at the int8 main path's shapes (K4 also at phase 11's beam fold
    and at the edges of its key split: 1, 7 and 203 keys), timed in turns as
@@ -41,7 +43,10 @@ then exits non-zero without the final "ok" line:
    make_serving_step at batch 64, 64 tokens, int8 cross memory and cache,
    twice, with the launch count of every kernel checked per step.
 9. decode kernels: cached_attention (K5, bf16 and f32, at the greedy step,
-   its prefill bucket and the host beam's shape), permute_rows_multi (K6, on
+   its prefill bucket, the host beam's step and prompt prefill, and at the
+   edges of its copies: C = 75, n_past 0 and C - 1, an f32 cache walked in
+   two tiles, a base that is not 16-byte aligned; each also in a CUDA
+   graph), permute_rows_multi (K6, on
    the 160-row int8 cache's four leaves with repeated rows, and on a bf16
    K/V pair) and cow_copy_rows (K7, the int8 cache with 1, 8, 32 and 96
    forked rows from cow_assign) against their plain versions, timed in turns, with
@@ -86,7 +91,8 @@ then exits non-zero without the final "ok" line:
 
 The line before the last is the kernels JSON: every kernel with its
 main-path launches, error against its plain version, kernel, plain and
-library times, and its bound (bytes over 3.35 TB/s or operations over the
+library times (K4 cross and self and K5 also the time of one call in a CUDA
+graph, "graph_ms"), and its bound (bytes over 3.35 TB/s or operations over the
 peak rate of their type, whichever is larger; under a causal mask only the
 keys it lets through count; the split-TF32 kernels' f32 operations at the
 smaller of 67 TFLOP/s of f32 and three TF32 products at 495 TFLOP/s). It
@@ -120,6 +126,7 @@ from whisper_tpu_torch.kernels.cross_attention_int8 import (cross_attention_int8
                                                             cross_attention_int8_plan,
                                                             cross_attention_int8_reference)
 from whisper_tpu_torch.kernels.decode_attention import (cached_attention,
+                                                        cached_attention_plan,
                                                         cached_attention_reference, causal_mask)
 from whisper_tpu_torch.kernels import flash_attention as flash_attention_module
 from whisper_tpu_torch.kernels.flash_attention import (flash_attention, flash_attention_backward,
@@ -535,13 +542,25 @@ def phase_main_path(card: str):
     return launches, model
 
 
-FQ_CASES = [  # (mode, rows, d, dtype): the int8 main path's sites, large-v3 at batch 64
-    ("act", 64 * 1500, 1280, torch.bfloat16),       # attention output; hidden before cross-K/V
-    ("ln", 64 * 1500, 1280, torch.bfloat16),        # LN -> QKV and LN -> MLP0
-    ("gelu-erf", 64 * 1500, 5120, torch.bfloat16),  # GELU -> MLP1
-    ("gelu-tanh", 2 * 1500, 5120, torch.bfloat16),  # ggml's GELU, off the main path
-    ("ln", 2 * 1500, 1280, torch.float32),          # the f32 parity path (phase 7)
-    ("gelu-erf", 2 * 1500, 5120, torch.float32),
+FQ_CASES = [  # (name, mode, rows, d, dtype, elements before x's base)
+    # the int8 main path's sites, large-v3 at batch 64
+    ("act", "act", 64 * 1500, 1280, torch.bfloat16, 0),  # attention output; before cross-K/V
+    ("ln", "ln", 64 * 1500, 1280, torch.bfloat16, 0),    # LN -> QKV and LN -> MLP0
+    ("gelu-erf", "gelu-erf", 64 * 1500, 5120, torch.bfloat16, 0),  # GELU -> MLP1
+    ("gelu-tanh", "gelu-tanh", 2 * 1500, 5120, torch.bfloat16, 0),  # ggml's GELU, off the path
+    ("ln-f32", "ln", 2 * 1500, 1280, torch.float32, 0),  # the f32 parity path (phase 7)
+    ("gelu-erf-f32", "gelu-erf", 2 * 1500, 5120, torch.float32, 0),
+]
+# Run after K4's cases, so that those draw the inputs they drew before
+# these were added (on others K4 cross-f32 failed K4_TOL: ROADMAP Queue 3)
+FQ_MORE_CASES = [
+    ("act-5120", "act", 64 * 1500, 5120, torch.bfloat16, 0),  # gelu's bytes, without its GELU
+    # edges of the vector layout: D not a multiple of 8 (scalar loads and
+    # stores), a base 2 bytes past a 16-byte boundary
+    ("ln-d1283", "ln", 2 * 1500, 1283, torch.bfloat16, 0),
+    ("act-d1283", "act", 2 * 1500, 1283, torch.bfloat16, 0),
+    ("ln-offset", "ln", 2 * 1500, 1280, torch.bfloat16, 1),
+    ("act-offset", "act", 2 * 1500, 1280, torch.bfloat16, 1),
 ]
 BEAM_GROUPS, BEAM = 32, 5  # phase 11: 32 windows x 5 beams = 160 decoder rows
 K4_CASES = [  # (name, batch, heads, tq, keys, n_past, dtype); n_past None: cross
@@ -589,46 +608,53 @@ def _fq_agreement(mode: str, got, want):
     return ok, scale_rel, levels, share, err
 
 
+def _fq_case(card: str, gen, rows: dict, name: str, mode: str, n: int, d: int, dtype,
+             off: int) -> None:
+    """One fused_quant case against its plain version; adds its row."""
+    x = (torch.randn(off + n * d, device="cuda", generator=gen) * 2).to(dtype)[off:].view(n, d)
+    w, b = (torch.randn(d, device="cuda", generator=gen).to(dtype) for _ in range(2))
+    kern, plain = _fq_calls(mode, x, w, b)
+    got = kern()
+    torch.cuda.synchronize()
+    ok, scale_rel, levels, share, err = _fq_agreement(mode, got, plain())
+    ms, plain_ms, t = in_turns(plain, kern, 20)
+    gbps = n * d * (x.element_size() + 1) / (ms * 1e-3) / 1e9
+    bound = FQ_BOUNDS[mode.split("-")[0]]
+    log(f"[int8-kernel] fused_quant {name}: {mode} ({n}, {d}) {str(dtype)[6:]}, base "
+        f"+{off * x.element_size()} bytes, {fused_quant.fused_quant_plan(d).warps_per_row} "
+        f"warp(s) a row: scale max rel "
+        f"{scale_rel:.3e}, codes max {levels} levels apart on {share:.3e} of them, "
+        f"dequant max_abs_err {err:.3e} (bound: scale rtol {bound[0]:.1e}, {bound[1]} "
+        f"level(s) on < {bound[2]:.0e}); kernel {ms:.4f} ms ({t[1]:.4f}, {t[2]:.4f}), "
+        f"plain {plain_ms:.4f} ms ({t[0]:.4f}, {t[3]:.4f}); kernel {gbps:.0f} GB/s "
+        f"(read + write); {card}")
+    if not ok:
+        raise AssertionError(f"fused_quant {name} disagrees with its plain version")
+    if name == "gelu-erf":
+        # planted fault: the tanh kernel against the erf plain version
+        # must fail the same bound
+        passes, _, p_levels, p_share, _ = _fq_agreement(
+            mode, fused_quant.gelu_quant(x, "tanh"), plain())
+        log(f"[int8-kernel] planted fault, fused_quant gelu-tanh vs the erf plain version "
+            f"({n}, {d}): codes max {p_levels} levels apart on {p_share:.3e} of them, "
+            f"{'passes the bound: NOT caught' if passes else 'fails the bound: caught'}")
+        if passes:
+            raise AssertionError("the fused_quant bound does not tell a tanh GELU from erf")
+    # inputs read once (x, and LN's affine), int8 codes and f32 scales
+    # written once; the f32 operations per element counted as FQ_OPS
+    b_ms, by = bound_ms(nbytes(x, *((w, b) if mode == "ln" else ())) + n * d + 4 * n,
+                        n * d * FQ_OPS[mode.split("-")[0]], torch.float32)
+    rows[name] = {
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+        "bound_by": by, "library_ms": None}
+
+
 def phase_int8_kernels(card: str) -> dict:
     """K2/K3 and K4 vs their plain versions; returns a row per case."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows = {}
-    for mode, n, d, dtype in FQ_CASES:
-        x = (torch.randn(n, d, device="cuda", generator=gen) * 2).to(dtype)
-        w, b = (torch.randn(d, device="cuda", generator=gen).to(dtype) for _ in range(2))
-        kern, plain = _fq_calls(mode, x, w, b)
-        got = kern()
-        torch.cuda.synchronize()
-        ok, scale_rel, levels, share, err = _fq_agreement(mode, got, plain())
-        ms, plain_ms, t = in_turns(plain, kern, 20)
-        gbps = n * d * (x.element_size() + 1) / (ms * 1e-3) / 1e9
-        bound = FQ_BOUNDS[mode.split("-")[0]]
-        log(f"[int8-kernel] fused_quant {mode} ({n}, {d}) {str(dtype)[6:]}: scale max rel "
-            f"{scale_rel:.3e}, codes max {levels} levels apart on {share:.3e} of them, "
-            f"dequant max_abs_err {err:.3e} (bound: scale rtol {bound[0]:.1e}, {bound[1]} "
-            f"level(s) on < {bound[2]:.0e}); kernel {ms:.4f} ms ({t[1]:.4f}, {t[2]:.4f}), "
-            f"plain {plain_ms:.4f} ms ({t[0]:.4f}, {t[3]:.4f}); kernel {gbps:.0f} GB/s "
-            f"(read + write); {card}")
-        if not ok:
-            raise AssertionError(f"fused_quant {mode} disagrees with its plain version")
-        if mode == "gelu-erf" and dtype == torch.bfloat16:
-            # planted fault: the tanh kernel against the erf plain version
-            # must fail the same bound
-            passes, _, p_levels, p_share, _ = _fq_agreement(
-                mode, fused_quant.gelu_quant(x, "tanh"), plain())
-            log(f"[int8-kernel] planted fault, fused_quant gelu-tanh vs the erf plain version "
-                f"({n}, {d}): codes max {p_levels} levels apart on {p_share:.3e} of them, "
-                f"{'passes the bound: NOT caught' if passes else 'fails the bound: caught'}")
-            if passes:
-                raise AssertionError("the fused_quant bound does not tell a tanh GELU from erf")
-        # inputs read once (x, and LN's affine), int8 codes and f32 scales
-        # written once; the f32 operations per element counted as FQ_OPS
-        b_ms, by = bound_ms(nbytes(x, *((w, b) if mode == "ln" else ())) + n * d + 4 * n,
-                            n * d * FQ_OPS[mode.split("-")[0]], torch.float32)
-        rows[mode if dtype == torch.bfloat16 else f"{mode}-f32"] = {
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": by, "library_ms": None}
-        del x, got
+    for case in FQ_CASES:
+        _fq_case(card, gen, rows, *case)
     for name, bsz, h, tq, c, n_past, dtype in K4_CASES:
         q = (torch.randn(bsz, h, tq, 64, device="cuda", generator=gen) * 0.3).to(dtype)
         if n_past is None:  # cross memory (B, H, D, C), contiguous
@@ -654,8 +680,8 @@ def phase_int8_kernels(card: str) -> dict:
         b_ms, by = bound_ms(nbytes(q, out) + 2 * bsz * h * c_eff * (64 + 4),
                             4 * bsz * h * pairs * 64, dtype)
         plan = cross_attention_int8_plan(c, tq, n_past)
-        graphed = (f"; in a CUDA graph {graph_ms(lambda: cross_attention_int8(*args), 50):.4f} ms"
-                   if name in K4_GRAPHED else "")
+        g_ms = graph_ms(lambda: cross_attention_int8(*args), 50) if name in K4_GRAPHED else None
+        graphed = f"; in a CUDA graph {g_ms:.4f} ms" if g_ms is not None else ""
         log(f"[int8-kernel] cross_attention_int8 {name} q ({bsz}, {h}, {tq}, 64) "
             f"{str(dtype)[6:]} over {c} keys, n_past {n_past}, {plan.ranks} rank(s) of "
             f"{plan.chunk} keys: max_abs_err {err:.3e} (atol {atol:.0e}, rtol {rtol:.1e}); "
@@ -666,7 +692,9 @@ def phase_int8_kernels(card: str) -> dict:
             raise AssertionError(f"cross_attention_int8 {name} disagrees with its plain version: "
                                  f"max_abs_err {err}")
         rows[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                      "bound_by": by, "library_ms": None}
+                      "bound_by": by, "library_ms": None, "graph_ms": g_ms}
+    for case in FQ_MORE_CASES:
+        _fq_case(card, gen, rows, *case)
     if fused_quant.act_quant.launches == 0 or cross_attention_int8.masked_launches == 0:
         raise AssertionError("the int8 kernels were not launched")
     torch.cuda.empty_cache()
@@ -823,9 +851,19 @@ K5_CASES = [  # (name, batch, heads, tq, ctx, n_past, dtype): layer 2 of a (B, 4
     ("b8", 8, 20, 1, 104, 40, torch.bfloat16),          # phase 5's greedy step, large-v3 b8
     ("b8-prefill", 8, 20, 32, 104, 0, torch.bfloat16),  # its 32-token prefill bucket
     ("beam", 20, 20, 1, 448, 40, torch.bfloat16),       # phase 12's host beam, 4 x 5 rows
+    ("beam-t3", 20, 20, 3, 448, 0, torch.bfloat16),     # its prefill of the 3-token prompt
     ("b8-f32", 8, 20, 1, 104, 40, torch.float32),
     ("b8-prefill-f32", 8, 20, 32, 104, 0, torch.float32),
     ("beam-f32", 20, 20, 1, 448, 40, torch.float32),
+    # edges of the kernel's copies: rows 150 bytes apart (not 16-byte
+    # aligned), the first and the last n_past, an f32 cache over all 448
+    # positions (K and V in two tiles each), a base 2 bytes past an aligned one
+    ("c75", 8, 20, 1, 75, 40, torch.bfloat16),
+    ("c75-t3-f32", 8, 20, 3, 75, 0, torch.float32),
+    ("n0", 8, 20, 1, 104, 0, torch.bfloat16),
+    ("n103", 8, 20, 1, 104, 103, torch.bfloat16),
+    ("beam-f32-full", 20, 20, 1, 448, 447, torch.float32),
+    ("b8-offset", 8, 20, 1, 104, 40, torch.bfloat16),
 ]
 
 
@@ -843,8 +881,9 @@ def _int8_beam_cache(gen, rows: int, ctx: int):
 def _k5_cases(card: str, gen, rows: dict) -> None:
     for name, bsz, h, tq, c, n_past, dtype in K5_CASES:
         q = (torch.randn(bsz, h, tq, 64, device="cuda", generator=gen) * 0.5).to(dtype)
-        kc, vc = (torch.randn(bsz, 4, h, 64, c, device="cuda", generator=gen).to(dtype)
-                  for _ in range(2))
+        off = 1 if name.endswith("-offset") else 0  # elements before the cache's base
+        kc, vc = (torch.randn(off + bsz * 4 * h * 64 * c, device="cuda", generator=gen)
+                  .to(dtype)[off:].view(bsz, 4, h, 64, c) for _ in range(2))
         k, v = kc[:, 2], vc[:, 2]  # one layer, read in place
         args = (q, k, v, n_past)
         out = cached_attention(*args)
@@ -864,17 +903,20 @@ def _k5_cases(card: str, gen, rows: dict) -> None:
         c_eff, pairs = causal_keys(n_past, tq, c)
         b_ms, by = bound_ms(nbytes(q, out) + 2 * bsz * h * 64 * c_eff * k.element_size(),
                             4 * bsz * h * pairs * 64, dtype)
+        plan = cached_attention_plan(c, tq, n_past, k.element_size())
         log(f"[decode-kernel] cached_attention {name} q ({bsz}, {h}, {tq}, 64) {str(dtype)[6:]} "
-            f"over {c} positions, n_past {n_past}: max_abs_err {err:.3e} (atol {atol:.0e}, "
-            f"rtol {rtol:.1e}); kernel {ms:.4f} ms ({t[1]:.4f}, {t[2]:.4f}), plain "
-            f"{plain_ms:.4f} ms ({t[0]:.4f}, {t[3]:.4f}), F.scaled_dot_product_attention "
+            f"over {c} positions, n_past {n_past}, base +{off * k.element_size()} bytes, "
+            f"{plan.rows} row(s) a block, tiles of {plan.width} keys: max_abs_err {err:.3e} "
+            f"(atol {atol:.0e}, rtol {rtol:.1e}); kernel {ms:.4f} ms ({t[1]:.4f}, {t[2]:.4f}), "
+            f"plain {plain_ms:.4f} ms ({t[0]:.4f}, {t[3]:.4f}), F.scaled_dot_product_attention "
             f"{lib_ms:.4f} ms; kernel in a CUDA graph {g_ms:.4f} ms; bound {b_ms:.4f} ms "
             f"({by}, {c_eff} of {c} positions seen); {card}")
         if not ok:
             raise AssertionError(f"cached_attention {name} disagrees with its plain version: "
                                  f"max_abs_err {err}")
         rows[f"k5-{name}"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                              "bound_ms": b_ms, "bound_by": by, "library_ms": lib_ms}
+                              "bound_ms": b_ms, "bound_by": by, "library_ms": lib_ms,
+                              "graph_ms": g_ms}
         del q, kc, vc, out, ref, diff
 
 
@@ -1475,9 +1517,12 @@ def main() -> None:
         # K4 cross with the beam fold (5 query rows a window), phase 11's launches
         ("cross_attention_int8.cross_beam", "cross_attention_int8.cu",
          "cross_attention_int8.py:109", beam["k4"] - beam["k4_self"], rows["cross-beam5"]),
-        # K5 on both bf16 paths: phase 5's greedy batch and phase 12's host beam
-        ("cached_attention", "decode_attention.cu", "decode_attention.py:109",
-         bf16["k5"] + host["k5"], rows["k5-b8"]),
+        # K5 on both bf16 paths, each with its launches: phase 5's greedy
+        # batch and phase 12's host beam (both rows carry the CUDA-graph time)
+        ("cached_attention", "decode_attention.cu", "decode_attention.py:109", bf16["k5"],
+         rows["k5-b8"]),
+        ("cached_attention.beam", "decode_attention.cu", "decode_attention.py:109", host["k5"],
+         rows["k5-beam"]),
         ("permute_rows_multi", "beam_gather.cu", "beam_gather.py:159", host["k6"],
          rows["k6-bf16"]),  # the host beam's float cache
         ("cow_copy_rows", "beam_gather.cu", "beam_gather.py:280", beam["k7"], rows["k7-96"]),

@@ -19,6 +19,7 @@ from whisper_tpu.kernels.beam_gather import cow_copy_rows as jax_cow_copy_rows
 from whisper_tpu.kernels.beam_gather import permute_rows_multi as jax_permute_rows_multi
 from whisper_tpu.kernels.decode_attention import cached_attention as jax_cached_attention
 from whisper_tpu_torch.kernels import beam_gather as bg
+from whisper_tpu_torch.kernels import decode_attention as k5
 from whisper_tpu_torch.kernels.decode_attention import (cached_attention,
                                                         cached_attention_reference)
 from whisper_tpu_torch.model.decoder import KVCache
@@ -59,6 +60,74 @@ def test_cached_attention_rounds_p_to_the_cache_dtype():
     torch.testing.assert_close(out, torch.matmul(p, v.float().transpose(-1, -2)),
                                atol=0, rtol=0)
     assert cached_attention_reference(q.to(torch.bfloat16), k, v, 17).dtype == torch.bfloat16
+
+
+def _check_tile(head: int, C: int, c0: int, n: int, esz: int, pitch: int) -> None:
+    """Each of the head's 64 rows: the copies of keys [c0, c0 + n) are
+    disjoint, cover every byte of those keys once, land at the byte's offset
+    from the row's 16-byte aligned start within ``pitch``, read nothing
+    outside the head (64 rows of C elements from ``head``), and the 16-byte
+    ones are aligned at both ends."""
+    lo, hi = head, head + 64 * C * esz
+    for d in range(64):
+        a = lo + (d * C + c0) * esz
+        e = a + n * esz
+        pieces = sorted(k5.tile_pieces(head, C, c0, n, esz, d))
+        covered, end = 0, None
+        for src, size, dst, kind in pieces:
+            assert lo <= src and src + size <= hi, "a copy reads outside the head"
+            assert end is None or src >= end, "two copies overlap"
+            assert dst == src - (a & ~15) and 0 <= dst and dst + size <= pitch
+            if kind == "async":
+                assert size == 16 and src % 16 == 0 and dst % 16 == 0
+            else:
+                assert size == esz and a <= src < e  # an element the tile needs
+            covered += max(0, min(src + size, e) - max(src, a))
+            end = src + size
+        assert covered == e - a
+
+
+@pytest.mark.parametrize("esz", [2, 4])  # a bf16 or an f32 cache
+@pytest.mark.parametrize("past", ["0", "40", "C-1"])
+@pytest.mark.parametrize("T", [1, 3, 32])
+@pytest.mark.parametrize("C", [1, 75, 104, 448])
+def test_cached_attention_plan_covers_every_row_and_visible_key(C, T, past, esz):
+    """K5's launch (csrc/decode_attention.cu follows the same plan): every
+    query row of every (b, h) falls in one block; each block's K and V tiles
+    cover the keys its rows can see once, and each tile's copies bring every
+    byte of those keys once and read nothing past the head, also when the
+    cache's base is not 16-byte aligned (rows of C = 75 are not either)."""
+    n_past = {"0": 0, "40": 40, "C-1": C - 1}[past]
+    plan = k5.cached_attention_plan(C, T, n_past, esz)
+    assert plan.rows in (1, 2, 4, 8) and plan.smem <= k5.SMEM_MAX
+    blocks = [rb * plan.rows + r for rb in range(plan.row_blocks) for r in range(plan.rows)]
+    assert [t for t in blocks if t < T] == list(range(T))
+    assert plan.row_blocks * plan.rows - T < plan.rows
+    B, L, H, layer = 2, 2, 2, 1  # heads of layer 1 of a (B, L, H, 64, C) cache
+    for off in sorted({0, esz, 14 // esz * esz}):  # the cache's base from an aligned one
+        for b, h in ((0, 0), (B - 1, H - 1)):
+            head = 4096 + off + ((b * L + layer) * H + h) * 64 * C * esz
+            for rb in range(plan.row_blocks):
+                c_hi = min(C, n_past + min((rb + 1) * plan.rows, T))
+                tiles = [(c0, min(plan.width, c_hi - c0)) for c0 in range(0, c_hi, plan.width)]
+                assert [c for c0, n in tiles for c in range(c0, c0 + n)] == list(range(c_hi))
+                for c0, n in tiles:
+                    _check_tile(head, C, c0, n, esz, plan.pitch)
+
+
+def test_cached_attention_plan_tiles_and_refuses_what_does_not_fit():
+    """K and V of every visible key fit at once at the main paths' shapes;
+    an f32 cache over all 448 positions takes tiles of a multiple of 16
+    keys; a call whose logits pass the shared memory raises."""
+    assert k5.cached_attention_plan(104, 1, 40, 2).width == 41
+    assert k5.cached_attention_plan(448, 1, 40, 2).width == 41
+    assert k5.cached_attention_plan(448, 1, 447, 2).width == 448
+    plan = k5.cached_attention_plan(448, 1, 447, 4)
+    assert plan.width < 448 and plan.width % 16 == 0 and plan.smem <= k5.SMEM_MAX
+    assert k5.cached_attention_plan(104, 32, 0, 2).rows == 8
+    assert k5.cached_attention_plan(60_000, 1, 0, 2).width == 1  # only key 0 is visible
+    with pytest.raises(ValueError, match="at most"):
+        k5.cached_attention_plan(60_000, 1, 59_999, 2)
 
 
 def _cache_leaves(rng, B: int):

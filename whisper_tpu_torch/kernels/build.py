@@ -105,3 +105,14 @@ def build_all(names) -> None:
             list(pool.map(_compile, todo, todo.values()))
     for name in names:
         load_library(name)
+
+
+def launch_on(device: torch.device, entry, *args) -> int:
+    """Call a kernel's C entry point with ``args`` on ``device`` (the stream
+    among the args must be that device's), making the device current only
+    when it is not: entering ``torch.cuda.device`` costs host time on every
+    decode step. Returns the entry's cudaError_t."""
+    if device.index == torch.cuda.current_device():
+        return entry(*args)
+    with torch.cuda.device(device):
+        return entry(*args)

@@ -17,15 +17,93 @@ route: a CUDA call that the kernel cannot take raises.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 
+from .build import launch_on, load_library
 from .ops import NEG
 
 D_HEAD = 64
-_SMEM_LIMIT = 200 * 1024  # shared memory a block may take, of the 227 KB
+SMEM_MAX = 232448  # the 227 KB of shared memory a block may take
+_SMEM_LIMIT = 200 * 1024  # what a block's q rows and logits may take of it
 _FLOATS = (torch.float32, torch.bfloat16)
+
+
+class K5Plan(NamedTuple):
+    """A launch of K5: a block per (b, h) and ``rows`` query rows
+    (``row_blocks`` blocks along T), K and V walked in tiles of ``width``
+    keys through two slots of 64 rows of ``pitch`` bytes; ``smem`` bytes a
+    block."""
+
+    rows: int
+    row_blocks: int
+    width: int
+    pitch: int
+    smem: int
+
+
+def _layout(rows: int, c_max: int, width: int, esz: int) -> tuple:
+    """(pitch, shared-memory bytes) of a block, as ``layout`` in
+    ``csrc/decode_attention.cu``: [rows][64] q and [rows][c_max] logits in
+    f32, then two slots of 64 rows, each ``width`` keys and up to 15 bytes of
+    shift, padded to 16 mod 128 bytes."""
+    pitch = (width * esz + 30) // 16 * 16
+    pitch += (144 - pitch % 128) % 128
+    floats = rows * D_HEAD + rows * (-(-c_max // 4) * 4)
+    return pitch, -(-floats * 4 // 16) * 16 + 2 * D_HEAD * pitch
+
+
+@functools.lru_cache(maxsize=4096)
+def cached_attention_plan(c_len: int, tq: int, n_past: int, esz: int) -> K5Plan:
+    """How K5 covers a call over ``c_len`` positions with ``tq`` query rows
+    at ``n_past`` and a cache of ``esz``-byte elements: the fewest of 1, 2,
+    4, 8 rows a block that hold min(tq, 8), halved while the q rows and the
+    logits of every visible key (min(c_len, n_past + tq)) pass 200 KB; then
+    K and V in one tile each when both fit the rest of 227 KB, else in tiles
+    of the most keys (a multiple of 16) that do. Raises for a call that does
+    not fit."""
+    c_max = min(c_len, n_past + tq)
+    rows = 1
+    while rows < min(tq, 8):
+        rows *= 2
+    while rows > 1 and 4 * rows * (D_HEAD + c_max) > _SMEM_LIMIT:
+        rows //= 2
+    if 4 * rows * (D_HEAD + c_max) > _SMEM_LIMIT:
+        raise ValueError(f"cached_attention takes at most {_SMEM_LIMIT // 4 - D_HEAD} "
+                         f"visible positions, got {c_max}")
+    width = c_max
+    while _layout(rows, c_max, width, esz)[1] > SMEM_MAX:
+        width = (width - 1) // 16 * 16
+        if width == 0:
+            raise ValueError(f"cached_attention over {c_max} visible positions does not fit "
+                             f"{SMEM_MAX} bytes of shared memory")
+    pitch, smem = _layout(rows, c_max, width, esz)
+    return K5Plan(rows, -(-tq // rows), width, pitch, smem)
+
+
+def tile_pieces(head: int, c_len: int, c0: int, n: int, esz: int, row: int) -> list:
+    """The copies that bring keys [c0, c0 + n) of row ``row`` of a head into
+    its slot row, as ``issue_tile`` in ``csrc/decode_attention.cu`` makes
+    them: (global byte, bytes, slot-row byte, "async" or "element") for each
+    16-byte piece from the row's aligned start, a piece across the head's
+    bounds (``head`` is its first byte; 64 rows of ``c_len`` elements)
+    taken one needed element at a time."""
+    lo, hi = head, head + D_HEAD * c_len * esz
+    a = lo + (row * c_len + c0) * esz
+    e = a + n * esz
+    out = []
+    for piece in range((n * esz + 30) // 16):
+        p = (a & ~15) + 16 * piece
+        if p >= e:
+            continue
+        if p >= lo and p + 16 <= hi:
+            out.append((p, 16, 16 * piece, "async"))
+        else:
+            out += [(s, esz, 16 * piece + s - p, "element")
+                    for s in range(max(p, a), min(p + 16, e), esz)]
+    return out
 
 
 def _kvmajor_sdpa(q, k, v, mask: Optional[torch.Tensor], scale: float):
@@ -55,18 +133,6 @@ def cached_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     return _kvmajor_sdpa(q, k, v, mask, q.shape[-1] ** -0.5)
 
 
-def _rows_per_block(t: int, c: int) -> int:
-    rows = 1
-    while rows < min(t, 8):
-        rows *= 2
-    while rows > 1 and 4 * rows * (D_HEAD + c) > _SMEM_LIMIT:
-        rows //= 2
-    if 4 * rows * (D_HEAD + c) > _SMEM_LIMIT:
-        raise ValueError(f"cached_attention takes at most {_SMEM_LIMIT // 4 - D_HEAD} "
-                         f"positions, got {c}")
-    return rows
-
-
 def _check(q, k, v) -> None:
     if q.dtype not in _FLOATS or k.dtype not in _FLOATS:
         raise TypeError(f"cached_attention takes float32 or bfloat16, got q {q.dtype}, "
@@ -91,12 +157,24 @@ def _check(q, k, v) -> None:
                          f"got {k.stride()}, {v.stride()}")
 
 
+@functools.cache
+def _entry():
+    """The kernel's C entry point, resolved and typed once per process."""
+    fn = load_library("decode_attention").whisper_cached_attention
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_longlong, ctypes.c_int,
+                                                                 ctypes.c_float]
+                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def cached_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      n_past: int) -> torch.Tensor:
     """softmax(q kᵀ · D^-0.5, causal at ``n_past``) v over (B,H,T,64) q and
     one kv-major (B,H,64,C) layer of the float cache (f32 or bf16, the batch
-    stride free); the result has q's dtype. ``cached_attention.launches``
-    counts kernel launches."""
+    stride free); the result has q's dtype. On the card the launch follows
+    ``cached_attention_plan``. ``cached_attention.launches`` counts kernel
+    launches."""
     if q.device.type == "cpu":
         return cached_attention_reference(q, k, v, n_past)
     if q.device.type != "cuda":
@@ -104,21 +182,14 @@ def cached_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(q, k, v)
     if n_past < 0:
         raise ValueError(f"n_past must be >= 0, got {n_past}")
-    from .build import load_library
-
-    fn = load_library("decode_attention").whisper_cached_attention
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_longlong, ctypes.c_int,
-                                                                 ctypes.c_float]
-                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
     B, H, T, _ = q.shape
     C = k.shape[-1]
+    plan = cached_attention_plan(C, T, n_past, k.element_size())
     out = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, T, C,
-                 k.stride(0), n_past, D_HEAD ** -0.5, _rows_per_block(T, C),
-                 int(q.dtype == torch.bfloat16), int(k.dtype == torch.bfloat16), stream)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, T, C, k.stride(0),
+            n_past, D_HEAD ** -0.5, plan.rows, plan.width, int(q.dtype == torch.bfloat16),
+            int(k.dtype == torch.bfloat16), torch.cuda.current_stream(q.device).cuda_stream)
+    err = launch_on(q.device, _entry(), *args)
     if err != 0:
         raise RuntimeError(f"cached_attention kernel launch failed: cudaError {err}")
     cached_attention.launches += 1
