@@ -31,10 +31,14 @@ then exits non-zero without the final "ok" line:
    cross_attention_int8 (K4, cross and causal self) against their plain
    versions at the int8 main path's shapes (K4 also at phase 11's beam fold
    and at the edges of its key split: 1, 7 and 203 keys), timed in turns as
-   in phase 3, K4's decode shapes also in a CUDA graph, and K4 cross at
-   other cluster sizes than its plan's, each held to the plain version;
-   a planted fault (the tanh GELU kernel against the erf plain version) must
-   fail the fused_quant bound.
+   in phase 3, K4's decode shapes also in a CUDA graph, each held to the
+   plain version. Every case draws its inputs from a generator of its own,
+   seeded from its name. K4's f32 check adds a flipped bf16 rounding of
+   p * v_scale at the keys near a rounding midpoint (the flip term, see
+   K4_TOL), and "cross-f32" is held to it on K4_SWEEP seeds; three planted
+   faults must fail: the tanh GELU kernel against the erf plain version (the
+   fused_quant bound), and at "cross-f32" the plain version without its last
+   key and the plain output rounded to bf16 (the K4 check).
 7. int8 parity: phase 4's checkpoint prepared for serving
    (prepare_serving_params: int8 decoder, W8A8 encoder, fused QKV) runs
    make_serving_step(kv_dtype="int8") on the CPU (plain versions) and on the
@@ -88,9 +92,29 @@ then exits non-zero without the final "ok" line:
    and the backward kernel each launched 2 x 32 times per step (all through
    flash_sdpa: flash_attention raises when a gradient is asked of it), the
    bf16 kernel and the plain backward never; ms per step and peak memory.
+16. whisper_full parity: phase 4's f32 checkpoint transcribes a 35 s WAV
+   (read back through load_wav) on the CPU (plain versions) and on the card
+   (kernels): greedy with word timestamps, beam 3 by the device beam, and
+   beam 3 with patience by the host loop's device top-k step. Text and
+   every segment's tokens, seek, t0 and t1 identical; word times within one
+   0.02 s tick; K1 once per encoder layer and window, K5, and K7 or K6
+   launched on the card.
+17. whisper_full main path: phase 5's large-v3 bf16 model transcribes a
+   WF_SECONDS WAV with language=None (language ID on the first window, its
+   encoding reused), temperature (0.0, 0.4) with best_of 2, word timestamps
+   and audio_ctx "auto", twice, the second run timed: windows, rungs per
+   window, stage walls (mel, lang_id, encode, decode, word_align, each
+   ending in a sync), seconds of audio per wall second, peak memory; K1
+   launched n_audio_layer times per window encoded and K5 n_text_layer
+   times per decoder forward (decode_step or cross_attention_probs). The
+   first run also holds K1 and K5 to their plain versions on the path's own
+   inputs at the first call of each shape (K1_CASES and K5_CASES carry the
+   path's shapes too: the short "auto" windows, language ID's cache of 8,
+   the word-timing prefill).
+Phases 16 and 17 run after phase 12, while phase 5's model is loaded.
 
 The line before the last is the kernels JSON: every kernel with its
-main-path launches, error against its plain version, kernel, plain and
+main-path launches (K1 and K5 with phase 17's added), error against its plain version, kernel, plain and
 library times (K4 cross and self and K5 also the time of one call in a CUDA
 graph, "graph_ms"), and its bound (bytes over 3.35 TB/s or operations over the
 peak rate of their type, whichever is larger; under a causal mask only the
@@ -107,6 +131,7 @@ import json
 import math
 import subprocess
 import time
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -120,6 +145,7 @@ from whisper_tpu_torch.decoding.task import DecodingOptions, decode_full
 from whisper_tpu_torch.frontend.mel import (frame_count, log_mel_spectrogram, mel_filter_bank,
                                             mel_window)
 from whisper_tpu_torch.io.ggml import tensor_schema, write_ggml
+from whisper_tpu_torch.io.wav import load_wav, write_wav
 from whisper_tpu_torch.kernels import beam_gather, build
 from whisper_tpu_torch.kernels import fused_quant
 from whisper_tpu_torch.kernels.cross_attention_int8 import (cross_attention_int8,
@@ -140,8 +166,10 @@ from whisper_tpu_torch.model import decoder as decoder_module
 from whisper_tpu_torch.model.decoder import KVCache, decode_step, init_cache
 from whisper_tpu_torch.model.encoder import encode
 from whisper_tpu_torch.model.load import load_model, random_model
-from whisper_tpu_torch.model.quant import QuantKV, init_quant_cache, quantize_act, quantize_kv
+from whisper_tpu_torch.model.quant import (QuantKV, init_quant_cache, qk_logits, quantize_act,
+                                           quantize_kv)
 from whisper_tpu_torch.parallel.serving import BatchTranscriber
+from whisper_tpu_torch.pipeline.transcribe import TranscribeOptions, transcribe
 from whisper_tpu_torch.training import finetune as finetune_module
 from whisper_tpu_torch.training.train import (init_train_state, leaves, make_optimizer,
                                               make_train_step)
@@ -186,8 +214,27 @@ FQ_OPS = {"act": 4, "ln": 12, "gelu": 20}
 # K4 vs quant_sdpa. Both take the same f32 logits and softmax and round the
 # NORMALISED p * v_scale to bf16 (two passes, no online softmax), so only the
 # order of the f32 sums differs: a bf16 output may move by one ulp (2^-7 of
-# its magnitude, tighter than K1's 2^-6), an f32 one by f32 noise.
+# its magnitude, tighter than K1's 2^-6), an f32 one by f32 noise...
 K4_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (1e-3, 2 ** -7)}
+# ...and, at f32, by a flipped rounding (the flip term, k4_flip_term, per
+# element). pv_out rounds p * v_scale to bf16 even for an f32 q
+# (model/quant.py pv_out). The kernel's logits (a sequential fma sum over d),
+# its expf and its sum may each sit an f32 ulp from the plain version's
+# (cuBLAS's order, torch's exp), so its p * v_scale may sit a few f32 ulps
+# from the plain one. Where the plain value lies within K4_NEAR_ULPS f32
+# ulps of a bf16 rounding midpoint, the two may round it to neighbouring
+# bf16 values, one bf16 ulp apart, and output column d moves by that ulp
+# times the key's |v code| at d. The term sums that over the keys near a
+# midpoint, per element: a key lies that near with odds ~2 * K4_NEAR_ULPS /
+# 2^16 (2^16 f32 ulps to a bf16 one), ~0.4 of the 1500 keys of a row, and
+# most rows get no term at all. Measured (k4_f32_flip, 32 seeds of
+# "cross-f32"): every flip that moved an element past K4_TOL came from a key
+# within 3 f32 ulps of its midpoint. The bf16 bound already covers a flip:
+# its output rounds to bf16 anyway. Phase 6 plants two faults that must fail
+# this check: a dropped key (moves a row by about p * v of that key) and the
+# f32 output rounded to bf16 (moves an element by up to 2^-9 of it).
+K4_NEAR_ULPS = 8
+K4_SWEEP = 8  # seeds of "cross-f32" held to the f32 check in phase 6
 # int8 CPU vs card on the f32 checkpoint: any f32 difference between the
 # devices (K1's sums, the convolution, the kernels' LN) can move a W8A8 code
 # at a rounding boundary by a level, one quantization step of an activation,
@@ -368,6 +415,11 @@ K1_CASES = [  # (batch, heads, tq, tk, causal, dtype)
     (2, 20, 100, 300, True, torch.bfloat16),
     (2, 20, 300, 100, True, torch.bfloat16),
     (2, 20, 300, 100, True, torch.float32),
+    # a short window under audio_ctx "auto" (512-frame buckets: 256·k
+    # positions); phase 17's last window is the 512
+    (1, 20, 256, 256, False, torch.bfloat16),
+    (1, 20, 512, 512, False, torch.bfloat16),
+    (1, 20, 768, 768, False, torch.bfloat16),
 ]
 
 
@@ -550,10 +602,6 @@ FQ_CASES = [  # (name, mode, rows, d, dtype, elements before x's base)
     ("gelu-tanh", "gelu-tanh", 2 * 1500, 5120, torch.bfloat16, 0),  # ggml's GELU, off the path
     ("ln-f32", "ln", 2 * 1500, 1280, torch.float32, 0),  # the f32 parity path (phase 7)
     ("gelu-erf-f32", "gelu-erf", 2 * 1500, 5120, torch.float32, 0),
-]
-# Run after K4's cases, so that those draw the inputs they drew before
-# these were added (on others K4 cross-f32 failed K4_TOL: ROADMAP Queue 3)
-FQ_MORE_CASES = [
     ("act-5120", "act", 64 * 1500, 5120, torch.bfloat16, 0),  # gelu's bytes, without its GELU
     # edges of the vector layout: D not a multiple of 8 (scalar loads and
     # stores), a base 2 bytes past a 16-byte boundary
@@ -649,29 +697,106 @@ def _fq_case(card: str, gen, rows: dict, name: str, mode: str, n: int, d: int, d
         "bound_by": by, "library_ms": None}
 
 
+def case_generator(name: str, seed: int = 0) -> torch.Generator:
+    """A generator of the case's own, seeded from its name (and a sweep
+    index): no case's inputs depend on which cases drew before it."""
+    return torch.Generator(device="cuda").manual_seed(zlib.crc32(f"{name}:{seed}".encode()))
+
+
+def k4_inputs(gen, bsz: int, h: int, tq: int, c: int, n_past, dtype) -> tuple:
+    """(q, k8, k_scale, v8, v_scale, n_past) of one K4 case: a contiguous
+    cross memory (B, H, D, C), or layer 2 of a (B, L, H, D, C) int8 cache."""
+    q = (torch.randn(bsz, h, tq, 64, device="cuda", generator=gen) * 0.3).to(dtype)
+    if n_past is None:
+        k8, ks = quantize_kv(torch.randn(bsz, h, 64, c, device="cuda", generator=gen))
+        v8, vs = quantize_kv(torch.randn(bsz, h, 64, c, device="cuda", generator=gen))
+    else:
+        kc, vc = (quantize_kv(torch.randn(bsz, 4, h, 64, c, device="cuda", generator=gen))
+                  for _ in range(2))
+        k8, ks, v8, vs = kc.data[:, 2], kc.scale[:, 2], vc.data[:, 2], vc.scale[:, 2]
+    return q, k8, ks, v8, vs, n_past
+
+
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """The spacing of bf16 values at |x| (8 significant bits): 2^(e - 8)
+    for |x| in [2^(e-1), 2^e)."""
+    _, e = torch.frexp(x.float())
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
+
+
+def k4_flip_term(q, k8, ks, v8, vs, n_past) -> torch.Tensor:
+    """The f32 flip term (see K4_TOL) per output element (B, H, T, D): over
+    the keys whose plain f32 p * v_scale lies within K4_NEAR_ULPS f32 ulps of
+    a bf16 rounding midpoint, the sum of one bf16 ulp of it times the key's
+    |v code| at d."""
+    logits = qk_logits(q, QuantKV(k8, ks))
+    if n_past is not None:
+        logits = logits.masked_fill(~causal_mask(n_past, q.shape[2], k8.shape[-1], q.device),
+                                    -1e30)
+    x = torch.softmax(logits, dim=-1) * vs.unsqueeze(-2)  # the value pv_out rounds
+    ulp16 = bf16_ulp(x)
+    mid = (x.view(torch.int32) & -65536).view(torch.float32) + ulp16 / 2  # exact in f32
+    _, e = torch.frexp(x)
+    near = (x - mid).abs() <= K4_NEAR_ULPS * torch.ldexp(torch.ones_like(x), e - 24)
+    return torch.matmul(torch.where(near, ulp16, 0.0), v8.float().abs().transpose(-1, -2))
+
+
+def k4_agreement(out, ref, args) -> tuple:
+    """(every element within K4_TOL, plus the flip term at f32; max abs
+    error; the largest term) of a K4 output against ``ref``."""
+    q = args[0]
+    diff = (out.float() - ref.float()).abs()
+    atol, rtol = K4_TOL[q.dtype]
+    bound = atol + rtol * ref.float().abs()
+    term = 0.0
+    if q.dtype == torch.float32:
+        flip = k4_flip_term(*args)
+        bound, term = bound + flip, flip.max().item()
+    return bool((diff <= bound).all()), diff.max().item(), term
+
+
+def _k4_f32_sweep(card: str) -> None:
+    """"cross-f32" on K4_SWEEP seeds, each held to K4_TOL with the f32 term;
+    then two planted faults that must fail the same check: the plain version
+    without its last key, and the plain output rounded to bf16."""
+    name, bsz, h, tq, c, n_past, dtype = next(x for x in K4_CASES if x[0] == "cross-f32")
+    for seed in range(K4_SWEEP):
+        args = k4_inputs(case_generator(name, seed), bsz, h, tq, c, n_past, dtype)
+        out = cross_attention_int8(*args)
+        ok, err, term = k4_agreement(out, cross_attention_int8_reference(*args), args)
+        log(f"[int8-kernel] cross_attention_int8 {name} seed {seed}: max_abs_err {err:.3e} "
+            f"(atol {K4_TOL[dtype][0]:.0e} + rtol {K4_TOL[dtype][1]:.0e} + the flip term, "
+            f"at most {term:.3e} in an element): {'within' if ok else 'OUTSIDE'}")
+        if not ok:
+            raise AssertionError(f"cross_attention_int8 {name} seed {seed} disagrees with its "
+                                 f"plain version: max_abs_err {err}")
+    q, k8, ks, v8, vs, _ = args
+    ref = cross_attention_int8_reference(*args)
+    faults = {"the plain version without its last key": cross_attention_int8_reference(
+                  q, k8[..., :-1], ks[..., :-1], v8[..., :-1], vs[..., :-1]),
+              "the plain output rounded to bf16": ref.to(torch.bfloat16).float()}
+    for fault, got in faults.items():
+        passes, err, _ = k4_agreement(got, ref, args)
+        log(f"[int8-kernel] planted fault, {fault} at {name}: max_abs_err {err:.3e}, "
+            f"{'passes: NOT caught' if passes else 'fails the check: caught'}")
+        if passes:
+            raise AssertionError(f"the K4 f32 check does not tell {fault}")
+
+
 def phase_int8_kernels(card: str) -> dict:
     """K2/K3 and K4 vs their plain versions; returns a row per case."""
-    gen = torch.Generator(device="cuda").manual_seed(1)
     rows = {}
     for case in FQ_CASES:
-        _fq_case(card, gen, rows, *case)
+        _fq_case(card, case_generator(case[0]), rows, *case)
+    _k4_f32_sweep(card)
     for name, bsz, h, tq, c, n_past, dtype in K4_CASES:
-        q = (torch.randn(bsz, h, tq, 64, device="cuda", generator=gen) * 0.3).to(dtype)
-        if n_past is None:  # cross memory (B, H, D, C), contiguous
-            k8, ks = quantize_kv(torch.randn(bsz, h, 64, c, device="cuda", generator=gen))
-            v8, vs = quantize_kv(torch.randn(bsz, h, 64, c, device="cuda", generator=gen))
-        else:  # layer 2 of a (B, L, H, D, C) cache, read in place
-            kc, vc = (quantize_kv(torch.randn(bsz, 4, h, 64, c, device="cuda", generator=gen))
-                      for _ in range(2))
-            k8, ks, v8, vs = kc.data[:, 2], kc.scale[:, 2], vc.data[:, 2], vc.scale[:, 2]
-        args = (q, k8, ks, v8, vs, n_past)
+        args = k4_inputs(case_generator(name), bsz, h, tq, c, n_past, dtype)
+        q = args[0]
         out = cross_attention_int8(*args)
         torch.cuda.synchronize()
         ref = cross_attention_int8_reference(*args)
-        diff = (out.float() - ref.float()).abs()
-        err = diff.max().item()
+        ok, err, term = k4_agreement(out, ref, args)
         atol, rtol = K4_TOL[dtype]
-        ok = bool((diff <= atol + rtol * ref.float().abs()).all())
         ms, plain_ms, t = in_turns(lambda: cross_attention_int8_reference(*args),
                                    lambda: cross_attention_int8(*args), 50)
         c_eff, pairs = causal_keys(n_past, tq, c)
@@ -684,7 +809,8 @@ def phase_int8_kernels(card: str) -> dict:
         graphed = f"; in a CUDA graph {g_ms:.4f} ms" if g_ms is not None else ""
         log(f"[int8-kernel] cross_attention_int8 {name} q ({bsz}, {h}, {tq}, 64) "
             f"{str(dtype)[6:]} over {c} keys, n_past {n_past}, {plan.ranks} rank(s) of "
-            f"{plan.chunk} keys: max_abs_err {err:.3e} (atol {atol:.0e}, rtol {rtol:.1e}); "
+            f"{plan.chunk} keys: max_abs_err {err:.3e} (atol {atol:.0e}, rtol {rtol:.1e}"
+            f"{f', + the flip term, at most {term:.3e} in an element' if term else ''}); "
             f"kernel {ms:.4f} ms ({t[1]:.4f}, {t[2]:.4f}), plain {plain_ms:.4f} ms ({t[0]:.4f}, "
             f"{t[3]:.4f}){graphed}; bound {b_ms:.4f} ms ({by}); kernel {gbps:.0f} GB/s of int8 "
             f"K/V; {card}")
@@ -693,8 +819,6 @@ def phase_int8_kernels(card: str) -> dict:
                                  f"max_abs_err {err}")
         rows[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                       "bound_by": by, "library_ms": None, "graph_ms": g_ms}
-    for case in FQ_MORE_CASES:
-        _fq_case(card, gen, rows, *case)
     if fused_quant.act_quant.launches == 0 or cross_attention_int8.masked_launches == 0:
         raise AssertionError("the int8 kernels were not launched")
     torch.cuda.empty_cache()
@@ -864,6 +988,14 @@ K5_CASES = [  # (name, batch, heads, tq, ctx, n_past, dtype): layer 2 of a (B, 4
     ("n103", 8, 20, 1, 104, 103, torch.bfloat16),
     ("beam-f32-full", 20, 20, 1, 448, 447, torch.float32),
     ("b8-offset", 8, 20, 1, 104, 40, torch.bfloat16),
+    # phase 17's whisper_full shapes: detect_language's throwaway cache of 8,
+    # cross_attention_probs' prefill over its own T (short, and a long
+    # teacher-forced window), and a 223-token prompt bucketed to 256 over a
+    # full cache for best_of 2
+    ("lang-id", 1, 20, 1, 8, 0, torch.bfloat16),
+    ("wt-27", 1, 20, 27, 27, 0, torch.bfloat16),
+    ("wt-229", 1, 20, 229, 229, 0, torch.bfloat16),
+    ("prompt-256", 2, 20, 256, 448, 0, torch.bfloat16),
 ]
 
 
@@ -1185,6 +1317,195 @@ def phase_host_beam(card: str, model) -> dict:
     return n
 
 
+WF_SECONDS = 64  # phase 17's clip: two full windows and a short last one (PERF.md §4)
+WF_WORD_TICK = 0.02  # phase 16: word times CPU vs card within one timestamp tick
+
+
+def _wav_clip(seconds: int, seed: int):
+    """A synthetic clip written as a 16-bit WAV under build/ and read back
+    through the port's load_wav: (path, the samples as read)."""
+    CKPT_DIR.mkdir(parents=True, exist_ok=True)
+    path = CKPT_DIR / f"clip-{seconds}s-seed{seed}.wav"
+    write_wav(str(path), synthetic_audio(SAMPLE_RATE * seconds, seed=seed))
+    return str(path), load_wav(str(path))
+
+
+def _same_transcript(name: str, cpu: dict, card: dict) -> None:
+    """Text, language and every segment's tokens, seek, t0 and t1 identical
+    on the two devices; word times within WF_WORD_TICK."""
+    segs = list(zip(cpu["segments"], card["segments"]))
+    if len(cpu["segments"]) != len(card["segments"]):
+        raise AssertionError(f"whisper_full {name}: {len(cpu['segments'])} segments on cpu, "
+                             f"{len(card['segments'])} on cuda")
+    for i, (c, g) in enumerate(segs):
+        for key in ("seek", "t0", "t1", "tokens"):
+            if c[key] != g[key]:
+                extra = (f", parting at token {_first_divergence(c[key], g[key])}"
+                         if key == "tokens" else f": {c[key]} vs {g[key]}")
+                raise AssertionError(f"whisper_full {name}: segment {i}'s {key} differs "
+                                     f"between cpu and cuda{extra}")
+        cw, gw = c["words"] or [], g["words"] or []
+        if [w["word"] for w in cw] != [w["word"] for w in gw] or any(
+                abs(a[k] - b[k]) > WF_WORD_TICK + 1e-9 for a, b in zip(cw, gw)
+                for k in ("start", "end")):
+            raise AssertionError(f"whisper_full {name}: segment {i}'s words differ")
+    if cpu["text"] != card["text"] or cpu["language"] != card["language"]:
+        raise AssertionError(f"whisper_full {name}: text or language differs")
+
+
+def phase_whisper_full_parity(card: str) -> None:
+    """transcribe on phase 4's f32 checkpoint, a 35 s WAV, CPU (plain
+    versions) vs card (kernels): greedy with word timestamps (each
+    device's default loop), then beam 3 by the device beam and beam 3 with
+    patience by the host loop's device top-k step (use_device_loop on both)."""
+    cfg, path = tiny_checkpoint()
+    models = {dev: load_model(str(path), device=dev, dtype=torch.float32)
+              for dev in ("cpu", "cuda")}
+    wav_path, audio = _wav_clip(35, seed=35)
+    runs = [("greedy", dict(word_timestamps=True), None),
+            ("beam3", dict(beam_size=3), "k7"),
+            ("beam3-patience", dict(beam_size=3, patience=1.0), "k6")]
+    for name, fields, kernel in runs:
+        opts = TranscribeOptions(temperature=0.0, **fields)
+        if kernel is not None:
+            opts = dataclasses.replace(opts, use_device_loop=True)
+        out = {}
+        for dev, m in models.items():  # the card last: its launches are read
+            m.timers.counts.clear()
+            _zero_launches()
+            out[dev] = transcribe(m, wav_path if dev == "cuda" else audio, opts)
+            n = _read_launches()
+        _same_transcript(name, out["cpu"], out["cuda"])
+        windows = models["cuda"].timers.counts["encode"]
+        n_tok = sum(len(s["tokens"]) for s in out["cuda"]["segments"])
+        n_words = sum(len(s["words"] or []) for s in out["cuda"]["segments"])
+        log(f"[wf-parity] {name}: 35 s WAV, {windows} windows, {len(out['cuda']['segments'])} "
+            f"segments, {n_tok} tokens, {n_words} words: identical on cpu and cuda (words "
+            f"within {WF_WORD_TICK} s); launches on cuda {n}; {card}")
+        if n["k1_f32"] != cfg.n_audio_layer * windows or not n["k5"] or (
+                kernel and not n[kernel]):
+            raise AssertionError(f"whisper_full {name}: a kernel of the path was not launched "
+                                 f"as expected on the card: {n}")
+
+
+def phase_whisper_full(card: str, model) -> dict:
+    """transcribe on phase 5's large-v3 bf16 model: a WF_SECONDS WAV with
+    language ID, the ladder (0.0, 0.4) with best_of 2, word timestamps and
+    audio_ctx "auto", twice; the second run timed. Returns its launches."""
+    cfg = model.config
+    wav_path, _ = _wav_clip(WF_SECONDS, seed=64)
+    opts = TranscribeOptions(language=None, temperature=(0.0, 0.4), best_of=2,
+                             word_timestamps=True, audio_ctx="auto")
+    # Light spies (each hands on to the real function): the ladder's rungs,
+    # the encoder calls and the decoder forwards (every forward, decode_step
+    # or cross_attention_probs, embeds its tokens once). Run 1 also holds K1
+    # and K5 to their plain versions on the path's own inputs, at the first
+    # call of every shape the path gives them (K5 at n_past 0 and after).
+    from whisper_tpu_torch.model import encoder as encoder_module
+    from whisper_tpu_torch.pipeline import transcribe as transcribe_module
+    real = (transcribe_module.decode_full, encoder_module.encode, decoder_module._embed)
+    real_k1, real_k5 = encoder_module.flash_sdpa, decoder_module.cached_attention
+    rungs, frames, forwards, checked = [], [], [0], {}
+
+    def k1_spy(q, k, v, causal=False):
+        out = real_k1(q, k, v, causal)
+        key = ("K1", *q.shape, k.shape[-2])
+        if key not in checked:
+            checked[key] = _within(out, flash_attention_reference(q, k, v, causal),
+                                   K1_TOL[q.dtype])
+        return out
+
+    def k5_spy(q, k, v, n_past):
+        out = real_k5(q, k, v, n_past)
+        key = ("K5", *q.shape, k.shape[-1], "n_past 0" if n_past == 0 else "n_past > 0")
+        if key not in checked:
+            checked[key] = _within(out, cached_attention_reference(q, k, v, n_past),
+                                   K5_TOL[q.dtype])
+        return out
+
+    def decode_spy(decoder, vocab, cross_k, cross_v, options, **kw):
+        rungs.append(options.temperature)
+        return real[0](decoder, vocab, cross_k, cross_v, options, **kw)
+
+    def encode_spy(encoder, mel, **kw):
+        frames.append(mel.shape[-1])
+        return real[1](encoder, mel, **kw)
+
+    def embed_spy(*args):
+        forwards[0] += 1
+        return real[2](*args)
+
+    for run in (1, 2):
+        model.timers.totals.clear()
+        model.timers.counts.clear()
+        rungs.clear()
+        frames.clear()
+        forwards[0] = 0
+        torch.cuda.reset_peak_memory_stats()
+        _zero_launches()
+        transcribe_module.decode_full, encoder_module.encode, decoder_module._embed = (
+            decode_spy, encode_spy, embed_spy)
+        if run == 1:
+            encoder_module.flash_sdpa, decoder_module.cached_attention = k1_spy, k5_spy
+        try:
+            t0 = time.perf_counter()
+            res = transcribe(model, wav_path, opts)
+            wall = time.perf_counter() - t0
+        finally:
+            transcribe_module.decode_full, encoder_module.encode, decoder_module._embed = real
+            encoder_module.flash_sdpa, decoder_module.cached_attention = real_k1, real_k5
+        n = _read_launches()
+        tm = model.timers.totals
+        segs = res["segments"]
+        windows = len(frames)
+        per_window = []  # each window's rungs, from the cross memory's length
+        for t in rungs:
+            if not per_window or t == opts.temperature[0]:
+                per_window.append([])
+            per_window[-1].append(t)
+        stages = ", ".join(f"{k} {tm.get(k, 0.0) * 1e3:.1f} ms"
+                           for k in ("mel", "lang_id", "encode", "decode", "word_align"))
+        log(f"[wf-main] run {run}: large-v3 bf16, {res['duration']:.1f} s WAV, language "
+            f"{res['language']!r} detected, temperature (0.0, 0.4), best_of 2, word "
+            f"timestamps, audio_ctx auto: {windows} windows decoded (mel frames {frames}), "
+            f"rungs per window {per_window}; {stages}; total {wall * 1e3:.1f} ms, "
+            f"{res['duration'] / wall:.3f} s of audio per wall second; {len(segs)} segments, "
+            f"{sum(len(s['tokens']) for s in segs)} tokens, "
+            f"{sum(len(s['words'] or []) for s in segs)} words; peak "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; {forwards[0]} decoder "
+            f"forwards; launches {n}; {card}")
+        if run == 1:
+            for key, (ok, err) in sorted(checked.items(), key=str):
+                log(f"[wf-main]   {key[0]} at q {tuple(key[1:5])} over {key[5]} keys"
+                    f"{f', {key[6]}' if len(key) > 6 else ''}: max_abs_err {err:.3e} against "
+                    f"its plain version: {'within' if ok else 'OUTSIDE'} "
+                    f"{'K1_TOL' if key[0] == 'K1' else 'K5_TOL'}")
+            if not checked or not all(ok for ok, _ in checked.values()):
+                raise AssertionError("K1 or K5 disagrees with its plain version at a shape "
+                                     "of the whisper_full path")
+        if not (windows >= 3 and len(per_window) == windows
+                and all(f == 3000 or f % 512 == 0 for f in frames)):
+            raise AssertionError(f"windows: mel frames {frames}, rungs {per_window}")
+        if any(w not in ([0.0], [0.0, 0.4]) for w in per_window) or [0.0, 0.4] not in per_window:
+            raise AssertionError(f"the ladder's rungs {per_window}: no rung at t > 0")
+        if n["k1"] != cfg.n_audio_layer * windows:
+            raise AssertionError(f"flash_attention launched {n['k1']} times for {windows} "
+                                 f"encoded windows, not {cfg.n_audio_layer} per window")
+        if n["k5"] != cfg.n_text_layer * forwards[0]:
+            raise AssertionError(f"cached_attention launched {n['k5']} times over "
+                                 f"{forwards[0]} decoder forwards, not {cfg.n_text_layer} each")
+        if res["language"] not in model.vocab.languages or not segs or not any(
+                s["words"] for s in segs):
+            raise AssertionError(f"bad result: language {res['language']}, {len(segs)} segments")
+        for s in segs:
+            if not (all(0 <= t < cfg.n_vocab for t in s["tokens"]) and math.isfinite(
+                    s["avg_logprob"]) and 0.0 <= s["t0"] <= s["t1"] <= res["duration"] + 30):
+                raise AssertionError(f"bad segment {s}")
+    log(f"[wf-main] segment 0: {segs[0]['tokens'][:12]}... t0 {segs[0]['t0']} t1 "
+        f"{segs[0]['t1']}, temperature {segs[0]['temperature']}")
+    return n
+
+
 K1C_CASES = [  # (batch·heads, tq, tk, causal, dtype): the training path at batch 2
     (2 * 20, 1500, 1500, False, torch.float32),   # large-v3 encoder self-attention, f32
     (2 * 20, 63, 63, True, torch.float32),        # its decoder over a 64-token bucket
@@ -1493,6 +1814,8 @@ def main() -> None:
     phase_beam_parity(card)
     beam = phase_int8_beam_main_path(card, served)
     host = phase_host_beam(card, model)
+    phase_whisper_full_parity(card)
+    wf = phase_whisper_full(card, model)
     del model, served
     torch.cuda.empty_cache()
     train_rows, k1b_entry = phase_train_kernels(card)
@@ -1500,10 +1823,11 @@ def main() -> None:
     train = phase_train(card)
     src, tpu = "whisper_tpu_torch/csrc/", "whisper_tpu/kernels/"
     entries = [
-        # K1's bf16 kernel on both encode paths (phases 5 and 8), with the b8
-        # row; the b64 row beside it with phase 8's launches
+        # K1's bf16 kernel on both encode paths (phases 5 and 8) and
+        # whisper_full's (phase 17), with the b8 row; the b64 row beside it
+        # with phase 8's launches
         ("flash_attention", "flash_attention.cu", "flash_attention.py:141",
-         bf16["k1"] + n["k1"], k1["b8"]),
+         bf16["k1"] + n["k1"] + wf["k1"], k1["b8"]),
         ("flash_attention.b64", "flash_attention.cu", "flash_attention.py:141", n["k1"],
          k1["b64"]),
         ("fused_quant.act_quant", "fused_quant.cu", "fused_quant.py:113", n["act"], rows["act"]),
@@ -1517,10 +1841,11 @@ def main() -> None:
         # K4 cross with the beam fold (5 query rows a window), phase 11's launches
         ("cross_attention_int8.cross_beam", "cross_attention_int8.cu",
          "cross_attention_int8.py:109", beam["k4"] - beam["k4_self"], rows["cross-beam5"]),
-        # K5 on both bf16 paths, each with its launches: phase 5's greedy
-        # batch and phase 12's host beam (both rows carry the CUDA-graph time)
-        ("cached_attention", "decode_attention.cu", "decode_attention.py:109", bf16["k5"],
-         rows["k5-b8"]),
+        # K5 on the bf16 paths, each row with its launches: phase 5's greedy
+        # batch and whisper_full (phase 17), and phase 12's host beam (both
+        # rows carry the CUDA-graph time)
+        ("cached_attention", "decode_attention.cu", "decode_attention.py:109",
+         bf16["k5"] + wf["k5"], rows["k5-b8"]),
         ("cached_attention.beam", "decode_attention.cu", "decode_attention.py:109", host["k5"],
          rows["k5-beam"]),
         ("permute_rows_multi", "beam_gather.cu", "beam_gather.py:159", host["k6"],

@@ -166,12 +166,17 @@ def test_default_decode_full_with_patience_matches_jax(setup):
 
 
 def test_decoding_routes_that_stay_unported(setup):
+    """The routes this file once pinned as unported now decode: beam with
+    patience under the device loop (the host loop with the device top-k
+    step, tokens as the plain host beam's) and best_of groups."""
     cfg, _, _, _, decoder, vocab, (ck, cv) = setup
-    with pytest.raises(NotImplementedError, match="top-k"):
-        decode_full(decoder, vocab, ck, cv, DecodingOptions(beam_size=2, patience=1.5),
-                    use_device_loop=True)
-    with pytest.raises(NotImplementedError, match="best_of"):
-        decode_full(decoder, vocab, ck, cv, DecodingOptions(temperature=0.5, best_of=2))
+    opts = DecodingOptions(beam_size=2, patience=1.5, sample_len=8)
+    topk = decode_full(decoder, vocab, ck, cv, opts, use_device_loop=True)
+    host = decode_full(decoder, vocab, ck, cv, opts, use_device_loop=False)
+    assert [r.tokens for r in topk] == [r.tokens for r in host]
+    sampled = decode_full(decoder, vocab, ck, cv,
+                          DecodingOptions(temperature=0.5, best_of=2, sample_len=8))
+    assert len(sampled) == 2 and all(r.temperature == 0.5 for r in sampled)
 
 
 @pytest.mark.parametrize("int8", [False, True], ids=["float", "int8"])

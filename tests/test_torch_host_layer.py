@@ -158,3 +158,149 @@ def test_result_and_logging():
         pass
     assert timers.counts == {"mel": 2} and timers.totals["mel"] >= 0
     assert get_logger("x").name == "whisper_tpu_torch.x"
+
+
+# The whisper_full slice's copies: wav, token timestamps, normalizers, WER,
+# writers, the word-timing helpers, and the additions to result, vocab and
+# config.
+
+from whisper_tpu.io import wav as jax_wav  # noqa: E402
+from whisper_tpu.pipeline import timestamps as jax_timestamps  # noqa: E402
+from whisper_tpu.pipeline import word_timing as jax_word_timing  # noqa: E402
+from whisper_tpu.utils import normalizers as jax_normalizers  # noqa: E402
+from whisper_tpu.utils import wer as jax_wer  # noqa: E402
+from whisper_tpu.utils import writers as jax_writers  # noqa: E402
+from whisper_tpu_torch.io import wav  # noqa: E402
+from whisper_tpu_torch.pipeline import timestamps, word_timing  # noqa: E402
+from whisper_tpu_torch.utils import normalizers, wer, writers  # noqa: E402
+
+
+def _wav_files(tmp_path):
+    from scipy.io import wavfile
+
+    rng = np.random.default_rng(0)
+    pcm = (rng.standard_normal(16000) * 0.2).astype(np.float32)
+    files = {}
+    for name, rate, data in (
+            ("mono16k", 16000, (pcm * 32767).astype(np.int16)),
+            ("stereo8k", 8000, (np.stack([pcm, -pcm], axis=1)[:8000] * 32767).astype(np.int16)),
+            ("f32-22k", 22050, pcm[:11025]),
+            ("i32", 16000, (pcm * 2 ** 30).astype(np.int32)),
+            ("u8", 16000, (pcm * 100 + 128).astype(np.uint8))):
+        path = str(tmp_path / f"{name}.wav")
+        wavfile.write(path, rate, data)
+        files[name] = path
+    return files, pcm
+
+
+def test_wav_copy_equal(tmp_path):
+    files, pcm = _wav_files(tmp_path)
+    for name, path in files.items():
+        np.testing.assert_array_equal(wav.load_wav(path), jax_wav.load_wav(path), err_msg=name)
+    with pytest.raises(errors.AudioError):
+        wav.load_wav(files["stereo8k"], resample=False)
+    bad = tmp_path / "bad.wav"
+    bad.write_bytes(b"RIFF0000")
+    with pytest.raises(errors.AudioError):
+        wav.load_wav(str(bad))
+    ours, ref = str(tmp_path / "ours.wav"), str(tmp_path / "ref.wav")
+    wav.write_wav(ours, pcm * 3)
+    jax_wav.write_wav(ref, pcm * 3)
+    assert open(ours, "rb").read() == open(ref, "rb").read()
+
+
+def test_token_timestamps_copy_equal(checkpoint):
+    _, ours, ref = checkpoint
+    rng = np.random.default_rng(2)
+    audio = (rng.standard_normal(16000 * 12) * np.repeat(rng.random(120), 1600)).astype(
+        np.float32)
+    beg = ours.vocab.token_beg
+    fields = dict(id=0, seek=300, t0=3.0, t1=9.5, text="", avg_logprob=-0.5,
+                  no_speech_prob=0.1, temperature=0.0, compression_ratio=1.0)
+    token_lists = ([beg + 5, 220, 7, 8, 9, beg + 100, 11, 12, beg + 300],
+                   [5, 6, 220, 7], [], [beg, beg + 1])
+    for toks in token_lists:
+        segs = [result.Segment(tokens=list(toks), **fields)]
+        jsegs = [jax_result.Segment(tokens=list(toks), **fields)]
+        for energy_audio in (audio, None):
+            timestamps.add_token_timestamps(segs, ours.vocab, energy_audio)
+            jax_timestamps.add_token_timestamps(jsegs, ref.vocab, energy_audio)
+            assert [dataclasses.asdict(t) for t in segs[0].token_data] == [
+                dataclasses.asdict(t) for t in jsegs[0].token_data]
+    for text in (b" hello", b"a.b", b"\xff\xfe", b" "):
+        assert timestamps.token_voice_length(text) == jax_timestamps.token_voice_length(text)
+    assert [f.name for f in dataclasses.fields(result.Segment)] == [
+        f.name for f in dataclasses.fields(jax_result.Segment)]
+    assert [f.name for f in dataclasses.fields(result.TokenData)] == [
+        f.name for f in dataclasses.fields(jax_result.TokenData)]
+
+
+_TEXTS = ["Mr. Smith's colour TV costs twenty-five dollars and fifty cents!",
+          "I'm gonna travel 3rd class on the 21st of March, 1999 [music]",
+          "The organisation's theatre programme was cancelled (again) — ok?",
+          "It's one point five percent, i.e. about a half… hmm",
+          "Ça coûte cinquante euros; naïve café, ½ price"]
+
+
+def test_normalizers_and_wer_copy_equal():
+    pairs = [(normalizers.EnglishTextNormalizer(), jax_normalizers.EnglishTextNormalizer()),
+             (normalizers.BasicTextNormalizer(), jax_normalizers.BasicTextNormalizer()),
+             (normalizers.BasicTextNormalizer(remove_diacritics=True),
+              jax_normalizers.BasicTextNormalizer(remove_diacritics=True))]
+    for text in _TEXTS:
+        for ours, ref in pairs:
+            assert ours(text) == ref(text), text
+    refs, hyps = _TEXTS[:4], [t.upper().replace("a", "e") for t in _TEXTS[1:]]
+    for normalize in (True, False):
+        assert wer.wer(refs, hyps, normalize) == jax_wer.wer(refs, hyps, normalize)
+    assert wer.edit_distance(list("kitten"), list("sitting")) == jax_wer.edit_distance(
+        list("kitten"), list("sitting"))
+
+
+def test_writers_copy_equal():
+    import io
+
+    res = {"text": "a b", "segments": [
+        {"t0": 0.0, "t1": 1.234, "text": " first\tcue", "words": [
+            {"word": " first", "start": 0.0, "end": 0.5}, {"word": " cue", "start": 0.6,
+                                                            "end": 1.2}]},
+        {"t0": 3661.5, "t1": 3700.0, "text": " second", "words": None}]}
+    calls = [("write_txt", {}), ("write_tsv", {}), ("write_srt", {}), ("write_vtt", {}),
+             ("write_srt", {"highlight_words": True}), ("write_vtt", {"highlight_words": True})]
+    for name, kw in calls:
+        ours, ref = io.StringIO(), io.StringIO()
+        getattr(writers, name)(res, ours, **kw)
+        getattr(jax_writers, name)(res, ref, **kw)
+        assert ours.getvalue() == ref.getvalue(), name
+
+
+def test_word_timing_helpers_copy_equal(checkpoint):
+    _, ours, ref = checkpoint
+    rng = np.random.default_rng(4)
+    for shape, width in (((3, 9, 40), 7), ((2, 5), 3), ((4, 3), 7), ((6,), 1)):
+        x = rng.standard_normal(shape)
+        np.testing.assert_array_equal(word_timing.median_filter(x, width),
+                                      jax_word_timing.median_filter(x, width))
+    for n, m in ((1, 1), (5, 30), (30, 7), (12, 12)):
+        cost = rng.standard_normal((n, m))
+        cost[:, ::3] = 0.0  # ties
+        for a, b in zip(word_timing.dtw(cost), jax_word_timing.dtw(cost)):
+            np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(word_timing.default_alignment_heads(6, 4),
+                                  jax_word_timing.default_alignment_heads(6, 4))
+    assert config.ALIGNMENT_HEADS == jax_config.ALIGNMENT_HEADS
+    for name, cfg in config.PRESETS.items():
+        assert config.lookup_alignment_heads(cfg) == jax_config.lookup_alignment_heads(
+            jax_config.PRESETS[name]), name
+        np.testing.assert_array_equal(
+            word_timing.model_alignment_heads(cfg, cfg.n_text_layer, cfg.n_text_head),
+            jax_word_timing.model_alignment_heads(jax_config.PRESETS[name], cfg.n_text_layer,
+                                                  cfg.n_text_head))
+    tokens = [5, 220, 6, 7, ours.vocab.token_eot, 8, ours.vocab.token_beg + 3, 9]
+    assert word_timing.split_tokens_on_spaces(ours.vocab, tokens) == \
+        jax_word_timing.split_tokens_on_spaces(ref.vocab, tokens)
+    v, rv = ours.vocab, ref.vocab
+    for t in (0, 220, v.token_eot, v.token_beg, v.token_beg + 17, 10 ** 6):
+        assert v.is_timestamp(t) == rv.is_timestamp(t)
+        assert v.timestamp_to_seconds(t) == rv.timestamp_to_seconds(t)
+        assert v.token_bytes(t) == rv.token_bytes(t)

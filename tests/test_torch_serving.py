@@ -42,11 +42,11 @@ def test_unported_routes_raise(models):
     _, model, audios = models
     with pytest.raises(NotImplementedError):
         BatchTranscriber(model, 2, mesh=object())
-    with pytest.raises(NotImplementedError):  # best_of groups; beam options are ported
-        BatchTranscriber(model, 2, options=DecodingOptions(temperature=0.5, best_of=2)
-                         ).transcribe_batch(audios)
-    with pytest.raises(NotImplementedError):
-        decode_full(model.decoder, model.vocab, None, None,
-                    DecodingOptions(temperature=0.5, best_of=3))
+    # best_of groups are ported: the host loop decodes each stream's samples
+    results = BatchTranscriber(model, 2, options=DecodingOptions(
+        temperature=0.5, best_of=2, sample_len=8)).transcribe_batch(audios)
+    assert len(results) == 2 and all(r.temperature == 0.5 for r in results)
+    with pytest.raises(ValueError):  # best_of is not for greedy decoding
+        decode_full(model.decoder, model.vocab, None, None, DecodingOptions(best_of=3))
     with pytest.raises(ValueError):
         BatchTranscriber(model, 3).transcribe_batch(audios)

@@ -4,14 +4,14 @@ The port's own copy of what it reads from ``whisper_tpu/config.py`` (that
 module is JAX-free, but the port imports nothing of the JAX package): the
 11-field i32 GGML header as a frozen dataclass, the audio frontend
 constants, the released models' presets and the weight-size estimate the
-loader logs. The TPU HBM budget and the alignment heads are not copied:
-nothing in the port reads them yet.
+loader logs, and the published alignment heads of word timing. The TPU HBM
+budget is not copied: nothing in the port reads it yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 # Audio frontend constants.
 SAMPLE_RATE = 16_000
@@ -108,3 +108,57 @@ PRESETS: Dict[str, WhisperConfig] = {
     # v3 with the decoder pruned to 4 layers
     "large-v3-turbo": WhisperConfig(51866, 1500, 1280, 20, 32, 448, 1280, 20, 4, 128, 1),
 }
+
+
+# Published per-model alignment heads: the (decoder_layer, head) pairs whose
+# cross-attention tracks audio time, used for word-level timestamps
+# (pipeline/word_timing.py). Values are the public head sets openai ships
+# with each released checkpoint, as the JAX package's config.py transcribes
+# them. Unknown or ambiguous models fall back to openai's upper-half-layers
+# rule.
+ALIGNMENT_HEADS: Dict[str, Tuple[Tuple[int, int], ...]] = {
+    "tiny.en": ((1, 0), (2, 0), (2, 5), (3, 0), (3, 1), (3, 2), (3, 3), (3, 4)),
+    "tiny": ((2, 2), (3, 0), (3, 2), (3, 3), (3, 4), (3, 5)),
+    # base.en: no reliably-reproducible offline record (tests/test_word_timing
+    # range-checks every entry against its preset geometry and rejected the
+    # candidate set); absent -> upper-half fallback until assets allow
+    # transcribing the published config.
+    "base": ((3, 1), (4, 2), (4, 3), (4, 7), (5, 1), (5, 2), (5, 4), (5, 6)),
+    "small.en": ((6, 6), (7, 0), (7, 3), (7, 8), (8, 2), (8, 5), (8, 7),
+                 (9, 0), (9, 4), (9, 8), (9, 10)),
+    "small": ((5, 3), (5, 9), (8, 0), (8, 4), (8, 7), (8, 8), (9, 0), (9, 7),
+              (9, 9), (10, 5)),
+    "medium.en": ((11, 4), (14, 1), (14, 12), (14, 14), (15, 4), (16, 0),
+                  (16, 4), (16, 9), (17, 12), (17, 14), (18, 7), (18, 10),
+                  (18, 15), (20, 0), (20, 3), (20, 9), (20, 14), (21, 12)),
+    "medium": ((13, 15), (15, 4), (15, 15), (16, 1), (20, 0), (23, 4)),
+    "large": ((9, 19), (11, 2), (11, 4), (11, 17), (22, 7), (22, 11),
+              (22, 17), (23, 2), (23, 15)),  # large-v1
+    "large-v2": ((10, 12), (13, 17), (16, 11), (16, 12), (16, 13), (17, 15),
+                 (17, 16), (18, 4), (18, 11), (18, 19), (19, 11), (21, 2),
+                 (21, 3), (22, 3), (22, 9), (22, 12), (23, 5), (23, 7),
+                 (23, 13), (25, 5), (26, 1), (26, 12), (27, 15)),
+    "large-v3": ((7, 0), (10, 17), (12, 18), (13, 12), (16, 1), (17, 14),
+                 (19, 11), (21, 4), (24, 1), (25, 6)),
+    "large-v3-turbo": ((2, 4), (2, 11), (3, 3), (3, 6), (3, 11), (3, 14)),
+}
+
+
+def lookup_alignment_heads(cfg: "WhisperConfig") -> Optional[Tuple[Tuple[int, int], ...]]:
+    """The published alignment-head set for the model a GGML header
+    describes, or None when the header is ambiguous. The header pins
+    (n_audio_layer, n_vocab, n_text_layer): every released model resolves
+    uniquely EXCEPT large-v1 vs large-v2 (identical headers) — those
+    return None and word timing uses the upper-half-layers fallback rather
+    than guess."""
+    for name, preset in PRESETS.items():
+        if (
+            preset.n_audio_layer == cfg.n_audio_layer
+            and preset.n_vocab == cfg.n_vocab
+            and preset.n_text_layer == cfg.n_text_layer
+        ):
+            if name == "large" or name == "large-v2":
+                if cfg.n_audio_layer == 32 and cfg.n_vocab == 51865:
+                    return None  # v1/v2 indistinguishable from the header
+            return ALIGNMENT_HEADS.get(name)
+    return None

@@ -2,16 +2,15 @@
 
 Port of ``whisper_tpu/decoding/task.py``: ``DecodingOptions``, the 32-token
 prefill bucket, openai's initial-token construction, the host-orchestrated
-loop (``DecodingTask.run``: logit filters, greedy or beam bookkeeping and
-the ranker on host numpy, one device forward per token, the beam cache
-reordered by the row-gather kernel K6), and ``decode_full``'s routing to
-the device loops (greedy, ``decoding.device_loop``; beam,
-``decoding.device_beam``). Beam rows share their group's cross memory: the
-decoder folds the beam axis into the query when the cross batch is smaller.
-
-Not ported yet (``NotImplementedError``): ``best_of`` groups, the device
-top-k step (``use_topk_device``, JAX's ``topk_step.py``) and
-``detect_language``.
+loop (``DecodingTask.run``: logit filters, greedy, best_of or beam
+bookkeeping and the ranker on host numpy, one device forward per token, the
+beam cache reordered by the row-gather kernel K6; with ``use_topk_device``
+the beam's rules and top-k run on the device, ``decoding.topk_step``),
+``decode_full``'s routing to the device loops (greedy,
+``decoding.device_loop``; beam, ``decoding.device_beam``) and
+``detect_language``. Beam and best_of rows share their group's cross memory:
+the decoder folds the group axis into the query when the cross batch is
+smaller.
 """
 
 from __future__ import annotations
@@ -35,7 +34,7 @@ from .sequence import BeamSearchDecoder, GreedyDecoder, MaximumLikelihoodRanker
 @dataclasses.dataclass(frozen=True)
 class DecodingOptions:
     task: str = "transcribe"           # "transcribe" | "translate"
-    language: Optional[str] = None     # None -> "en" on multilingual models
+    language: Optional[str] = None     # None -> "en" (transcribe detects it first)
     temperature: float = 0.0
     sample_len: Optional[int] = None   # default n_text_ctx // 2
     best_of: Optional[int] = None      # sampling candidates when temperature > 0
@@ -145,13 +144,13 @@ class DecodingTask:
     def run(self, cross_k, cross_v, use_topk_device: bool = False) -> List[DecodingResult]:
         """Decode the windows of the cross memory (L, n_audio, H, D, Ta),
         float or ``QuantKV``, one result per window. Rows are
-        group-contiguous (n_audio * n_group of them) and share their
-        window's cross memory. ``use_topk_device`` concerns only a beam
-        decoder (JAX's device top-k step, not ported: it raises there);
-        any other decoder ignores it, as JAX's does."""
-        if use_topk_device and isinstance(self.decoder, BeamSearchDecoder):
-            raise NotImplementedError("the device top-k beam step (topk_step.py) is not "
-                                      "ported yet")
+        group-contiguous (n_audio * n_group of them: beams, or best_of
+        samples) and share their window's cross memory.
+
+        ``use_topk_device``: for beam search, apply the logit rules on the
+        device and fetch only the top beam_size + 1 candidates a step (the
+        same candidate set as the host filters give; no full-vocab logits
+        fetch). Any other decoder ignores it, as JAX's does."""
         if self.text_decoder is None:
             raise ValueError("DecodingTask.run needs the model's TextDecoder")
         cfg, v = self.config, self.vocab
@@ -159,6 +158,11 @@ class DecodingTask:
         n_seq = n_audio * self.n_group
         device = getattr(cross_k, "data", cross_k).device
         beam = isinstance(self.decoder, BeamSearchDecoder)
+        use_topk = use_topk_device and beam
+        if use_topk:
+            from .topk_step import decode_step_topk, rule_state_from_tokens
+
+            sup_mask, blank_mask, max_initial_index = _rule_masks(v, self.options, device)
 
         self.decoder.reset()
         tokens = np.tile(np.array(self.initial_tokens, np.int64), (n_seq, 1))
@@ -177,22 +181,35 @@ class DecodingTask:
         n_past = true_len
 
         sum_logprobs = np.zeros(n_seq, dtype=np.float64)
+        topk = None  # (top log-probabilities, ids) once the device applies the rules
         for _ in range(self.sample_len):
-            filt = logits.copy()
-            for f in self.filters:
-                f(filt, tokens)
-            if beam:
-                tokens, completed, sources = self.decoder.update(tokens, filt, sum_logprobs)
-                if not np.array_equal(sources, np.arange(n_seq)):
-                    cache = permute_cache_rows(cache, torch.from_numpy(sources).to(device))
+            if topk is not None:
+                tokens, completed, sources = self.decoder.update_from_topk(
+                    tokens, topk[0], topk[1], sum_logprobs)
             else:
-                tokens, completed = self.decoder.update(tokens, filt, sum_logprobs)
+                filt = logits.copy()
+                for f in self.filters:
+                    f(filt, tokens)
+                tokens, completed, *sources = self.decoder.update(tokens, filt, sum_logprobs)
+                sources = sources[0] if beam else None
+            if beam and not np.array_equal(sources, np.arange(n_seq)):
+                cache = permute_cache_rows(cache, torch.from_numpy(sources).to(device))
             if completed or tokens.shape[-1] > cfg.n_text_ctx:
                 break
             next_tok = torch.from_numpy(tokens[:, -1:]).to(device)
-            lg, cache = decode_step(self.text_decoder, next_tok, n_past, cache, cross_k,
-                                    cross_v)
-            logits = lg[:, 0].float().cpu().numpy()
+            if use_topk:
+                last_t, prev_t, last_ts, step = rule_state_from_tokens(
+                    tokens, self.sample_begin, v.token_beg, device)
+                top_lp, top_ids, _, cache = decode_step_topk(
+                    self.text_decoder, next_tok, n_past, cache, cross_k, cross_v, sup_mask,
+                    blank_mask, last_t, prev_t, last_ts, step, k=self.options.beam_size + 1,
+                    use_timestamps=not self.options.without_timestamps,
+                    max_initial_index=max_initial_index)
+                topk = (top_lp.cpu().numpy(), top_ids.cpu().numpy())
+            else:
+                lg, cache = decode_step(self.text_decoder, next_tok, n_past, cache, cross_k,
+                                        cross_v)
+                logits = lg[:, 0].float().cpu().numpy()
             n_past += 1
 
         # Finalize and rank.
@@ -236,16 +253,29 @@ def decode_full(decoder: TextDecoder, vocab: WhisperVocab, cross_k, cross_v,
 
     ``use_device_loop`` routes greedy/temperature decoding through the device
     loop (``decoding.device_loop``) and beam search without ``patience``
-    through the device beam (``decoding.device_beam``); otherwise the host
-    loop (``DecodingTask.run``) decodes, as JAX's ``decode_full`` routes."""
-    if (options.best_of or 1) != 1:
-        raise NotImplementedError("best_of groups are not ported yet")
-    if use_device_loop and options.beam_size is None:
+    through the device beam (``decoding.device_beam``); beam search with
+    ``patience`` takes the host loop with the device top-k step, and best_of
+    groups the host loop, as JAX's ``decode_full`` routes them."""
+    if use_device_loop and options.beam_size is None and (options.best_of or 1) == 1:
         return _decode_full_device(decoder, vocab, cross_k, cross_v, options)
-    if use_device_loop and options.patience is None:
+    if use_device_loop and options.beam_size is not None and options.patience is None:
         return _decode_full_device_beam(decoder, vocab, cross_k, cross_v, options)
     task = DecodingTask(decoder.cfg, vocab, options, decoder)
     return task.run(cross_k, cross_v, use_topk_device=use_device_loop)
+
+
+def _rule_masks(vocab: WhisperVocab, options: DecodingOptions, device: torch.device | str):
+    """The device rules' suppress and blank masks on ``device`` and the
+    first timestamp's cap (None without timestamps)."""
+    from .device_loop import build_masks
+
+    sup_mask, blank_mask = build_masks(vocab, device, suppress_tokens=options.suppress_tokens)
+    if not options.suppress_blank:
+        blank_mask = torch.zeros_like(blank_mask)
+    max_initial_index = None
+    if options.max_initial_timestamp is not None and not options.without_timestamps:
+        max_initial_index = round(options.max_initial_timestamp / 0.02)
+    return sup_mask, blank_mask, max_initial_index
 
 
 def _device_decode_prologue(config: WhisperConfig, vocab: WhisperVocab,
@@ -253,17 +283,10 @@ def _device_decode_prologue(config: WhisperConfig, vocab: WhisperVocab,
                             device: torch.device | str):
     """Masks, tiled and bucketed prompt rows, timestamp cap, and openai's
     context budget: up to n_text_ctx - true_len + 1 tokens are sampled."""
-    from .device_loop import build_masks
-
     task = DecodingTask(config, vocab, options)
-    sup_mask, blank_mask = build_masks(vocab, device, suppress_tokens=options.suppress_tokens)
-    if not options.suppress_blank:
-        blank_mask = torch.zeros_like(blank_mask)
+    sup_mask, blank_mask, max_initial_index = _rule_masks(vocab, options, device)
     init = np.tile(np.array(task.initial_tokens, np.int64), (n_rows, 1))
     padded, true_len = _pad_to_bucket(init)
-    max_initial_index = None
-    if options.max_initial_timestamp is not None and not options.without_timestamps:
-        max_initial_index = round(options.max_initial_timestamp / 0.02)
     sample_len = max(0, min(task.sample_len, config.n_text_ctx - true_len + 1))
     return task, padded, true_len, sup_mask, blank_mask, max_initial_index, sample_len
 
@@ -359,3 +382,27 @@ def _decode_full_device_beam(decoder: TextDecoder, vocab: WhisperVocab, cross_k,
             compression_ratio=compression_ratio(text),
         ))
     return results
+
+
+def detect_language(decoder: TextDecoder, vocab: WhisperVocab, cross_k,
+                    cross_v) -> Tuple[List[str], List[dict]]:
+    """One forward of SOT, the distribution over the language tokens only
+    (openai's ``detect_language``): the languages and, per window, every
+    language's probability."""
+    n_audio = _cross_batch(cross_k)
+    device = getattr(cross_k, "data", cross_k).device
+    # one T = 1 forward writes one KV column: a throwaway cache of 8 positions
+    cache = init_cache(decoder.cfg, n_audio, _cache_dtype(cross_k), device, ctx=8)
+    tokens = torch.full((n_audio, 1), vocab.token_sot, dtype=torch.long, device=device)
+    logits, _ = decode_step(decoder, tokens, 0, cache, cross_k, cross_v)
+    logits = logits[:, 0].float().cpu().numpy()
+    mask = np.full(logits.shape[-1], True)
+    mask[vocab.all_language_tokens] = False
+    logits[:, mask] = -np.inf
+    probs = np.exp(log_softmax(logits))
+    langs, all_probs = [], []
+    for i in range(n_audio):
+        langs.append(vocab.language_of_token(int(probs[i].argmax())))
+        all_probs.append({lang: float(probs[i, vocab.language_token(lang)])
+                          for lang in vocab.languages})
+    return langs, all_probs

@@ -1,4 +1,4 @@
-"""Typed errors of the GGML loader.
+"""Typed errors of the GGML loader and of audio ingestion.
 
 The port's own copy of the classes it raises from ``whisper_tpu/errors.py``:
 one exception type per load/parse failure, so callers can match on them.
@@ -77,3 +77,7 @@ class UnsupportedFtypeError(WhisperError):
             "(whisper.cpp-1.0.3 files are f32/f16 only)")
         self.name = name
         self.ftype = ftype
+
+
+class AudioError(WhisperError):
+    """WAV/PCM ingestion failure."""

@@ -59,6 +59,25 @@ class WhisperVocab:
         except ValueError:
             raise KeyError(f"unknown language {lang!r}") from None
 
+    def language_of_token(self, token: int) -> str:
+        idx = token - self.token_sot - 1
+        if not 0 <= idx < len(self.languages):
+            raise KeyError(f"token {token} is not a language token")
+        return self.languages[idx]
+
+    @property
+    def all_language_tokens(self) -> List[int]:
+        return [self.token_sot + 1 + i for i in range(len(self.languages))]
+
+    def is_timestamp(self, token: int) -> bool:
+        return token >= self.token_beg
+
+    def timestamp_to_seconds(self, token: int) -> float:
+        return (token - self.token_beg) * 0.02
+
+    def token_bytes(self, token: int) -> bytes:
+        return self.id_to_token.get(token, b"")
+
     def decode(self, tokens, strip_special: bool = True) -> str:
         """Concatenate token bytes -> UTF-8 text (whisper.cpp print semantics)."""
         parts = []

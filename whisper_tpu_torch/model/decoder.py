@@ -20,9 +20,12 @@ fused ``qkv_w`` replaces Q/K/V, an int8 tied embedding carries
 ``te_scale``, and ``QuantKV`` cross memory and self cache are read by the
 int8 decode-attention kernel (K4, ``kernels.cross_attention_int8``).
 
+``cross_attention_probs`` runs one causal forward over a teacher-forced
+sequence and returns every layer's cross-attention distribution, the
+alignment signal of word timing (``pipeline/word_timing.py``).
+
 Not ported yet: ``permute_rows`` (the beam engine's fused reorder), ragged
-``n_past``, ``defer_append``, ``decode_step_chunk`` and
-``cross_attention_probs``.
+``n_past``, ``defer_append`` and ``decode_step_chunk``.
 """
 
 from __future__ import annotations
@@ -34,7 +37,7 @@ from torch import nn
 
 from ..config import WhisperConfig
 from ..kernels.cross_attention_int8 import cross_attention_int8
-from ..kernels.decode_attention import _kvmajor_sdpa, cached_attention
+from ..kernels.decode_attention import cached_attention
 from ..kernels.ops import gelu, layer_norm, linear, merge_heads, split_heads
 from .params import Params, check_quantized, register_weights
 from .quant import QuantKV, _quantize_one
@@ -112,9 +115,12 @@ def _project_qkv(y, blk: "DecoderBlock", h: int):
 
 def _cross_mlp(x, blk: "DecoderBlock", cross_k, cross_v, cfg: WhisperConfig):
     """Cross-attention over the encoder memory (float, or int8 ``QuantKV``
-    through K4), then the MLP. A cross batch G smaller than the decoder
-    batch B = G·k is group-shared: the k rows of a group (contiguous) fold
-    into the query's T axis, so K4 reads each group's memory once."""
+    through K4), then the MLP; returns (x, cross probabilities or None). A
+    cross batch G smaller than the decoder batch B = G·k is group-shared:
+    the k rows of a group (contiguous) fold into the query's T axis, so K4
+    reads each group's memory once. A float cross memory goes through a
+    plain f32 softmax (``_kvmajor_sdpa``'s steps, no kernel returns the
+    distribution), whose probabilities (G, H, k·T, Ta) are returned."""
     h, d = cfg.n_text_head, cfg.d_head_text
     B, T, _ = x.shape
     Bc = getattr(cross_k, "data", cross_k).shape[0]
@@ -127,17 +133,20 @@ def _cross_mlp(x, blk: "DecoderBlock", cross_k, cross_v, cfg: WhisperConfig):
     qc = qc * _scalar(d ** -0.25, qc.dtype)
     if kk > 1:  # (G·k, H, T, D) -> (G, H, k·T, D)
         qc = qc.unflatten(0, (Bc, kk)).transpose(1, 2).reshape(Bc, h, kk * T, d)
+    probs = None
     if isinstance(cross_k, QuantKV):
         o = cross_attention_int8(qc.contiguous(), cross_k.data, cross_k.scale,
                                  cross_v.data, cross_v.scale)
     else:
-        o = _kvmajor_sdpa(qc, cross_k, cross_v, None, 1.0)
+        probs = torch.softmax(torch.matmul(qc.float(), cross_k.float()), dim=-1)
+        o = torch.matmul(probs.to(cross_v.dtype).float(),
+                         cross_v.float().transpose(-1, -2)).to(qc.dtype)
     if kk > 1:
         o = o.unflatten(2, (kk, T)).transpose(1, 2).reshape(B, h, T, d)
     x = x + _plinear(merge_heads(o), blk, "cross_out_w", "cross_out_b")
     y = layer_norm(x, blk.mlp_ln_w, blk.mlp_ln_b)
     y = gelu(_plinear(y, blk, "mlp0_w", "mlp0_b"), cfg.gelu_impl)
-    return x + _plinear(y, blk, "mlp1_w", "mlp1_b")
+    return x + _plinear(y, blk, "mlp1_w", "mlp1_b"), probs
 
 
 class DecoderBlock(nn.Module):
@@ -150,7 +159,8 @@ class DecoderBlock(nn.Module):
 
     def forward(self, x, cache: KVCache, layer: int, cross_k, cross_v, n_past: int):
         """Causal self-attention over the cache, then cross-attention and
-        MLP. The T new K/V columns are written into ``cache`` in place at
+        MLP; returns (x, cross probabilities or None, see ``_cross_mlp``).
+        The T new K/V columns are written into ``cache`` in place at
         ``n_past`` (clamped, like ``dynamic_update_slice``, so they fit);
         an int8 cache takes them quantized, codes and scales."""
         cfg = self.cfg
@@ -212,6 +222,19 @@ def decode_step(decoder: TextDecoder, tokens: torch.Tensor, n_past: int, cache: 
     callers advance ``n_past`` by the true length only, so the next call
     overwrites them. Token ids out of range are wrapped and clamped as JAX's
     gather does, where torch indexing would raise."""
+    x = _embed(decoder, tokens, n_past)
+    for layer, block in enumerate(decoder.blocks):
+        x, _ = block(x, cache, layer, _layer(cross_k, layer), _layer(cross_v, layer), n_past)
+    x = layer_norm(x, decoder.ln_w, decoder.ln_b)
+    te_scale = getattr(decoder, "te_scale", None)
+    if te_scale is None:
+        return torch.matmul(x.float(), decoder.te.float().T), cache
+    return matmul_f32(x, decoder.te) * te_scale, cache
+
+
+def _embed(decoder: TextDecoder, tokens: torch.Tensor, n_past: int) -> torch.Tensor:
+    """Token embedding (ids wrapped and clamped) plus the positional
+    embedding from ``n_past``, in the positional embedding's dtype."""
     T = tokens.shape[1]
     V = decoder.te.shape[0]
     te_scale = getattr(decoder, "te_scale", None)
@@ -220,10 +243,21 @@ def decode_step(decoder: TextDecoder, tokens: torch.Tensor, n_past: int, cache: 
     if te_scale is not None:
         x = x * te_scale[ids][..., None].to(x.dtype)
     start = max(0, min(n_past, decoder.pe.shape[0] - T))  # dynamic_slice clamps
-    x = x + decoder.pe[start:start + T][None]
+    return x + decoder.pe[start:start + T][None]
+
+
+def cross_attention_probs(decoder: TextDecoder, tokens: torch.Tensor, cross_k,
+                          cross_v) -> torch.Tensor:
+    """One causal forward over the teacher-forced ``tokens`` (B, T) from
+    position 0, into a throwaway float cache of T positions (self-attention
+    through K5, as ``decode_step``'s prefill); returns the cross-attention
+    distribution of every layer, (L, B, H, T, Ta) f32. The cross memory
+    is float, its batch B."""
+    B, T = tokens.shape
+    x = _embed(decoder, tokens, 0)
+    cache = init_cache(decoder.cfg, B, x.dtype, x.device, ctx=T)
+    probs = []
     for layer, block in enumerate(decoder.blocks):
-        x = block(x, cache, layer, _layer(cross_k, layer), _layer(cross_v, layer), n_past)
-    x = layer_norm(x, decoder.ln_w, decoder.ln_b)
-    if te_scale is None:
-        return torch.matmul(x.float(), decoder.te.float().T), cache
-    return matmul_f32(x, decoder.te) * te_scale, cache
+        x, p = block(x, cache, layer, _layer(cross_k, layer), _layer(cross_v, layer), 0)
+        probs.append(p)
+    return torch.stack(probs)
