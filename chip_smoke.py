@@ -12,11 +12,11 @@ then exits non-zero without the final "ok" line:
    process per source, all started together.
 3. kernel: the flash_attention kernel (K1) against its plain PyTorch version
    on the card, at the encoder shapes of both main paths (large-v3 at batch
-   8 and 64), at causal and ragged shapes and at the edges of the bf16
+   8 and 64; phase 18's beam bench at 48), at causal and ragged shapes and at the edges of the bf16
    kernel's tiles (one query, one key, fewer keys than a tile, causal with
    Tq != Tk), with CUDA-event times taken in turns (plain, kernel, kernel,
-   plain), TFLOP/s and the share of the bound; at both main shapes also
-   F.scaled_dot_product_attention's time.
+   plain), TFLOP/s and the share of the bound; at every 1500-position
+   encoder shape also F.scaled_dot_product_attention's time.
 4. parity: a small f32 checkpoint transcribed on the CPU (plain attention)
    and on the card (the kernel); encoder output, first-step logits and
    greedy tokens must agree.
@@ -29,8 +29,9 @@ then exits non-zero without the final "ok" line:
    gelu's shape, its byte floor, and at the edges of its vector layout: an
    odd D, a base off a 16-byte boundary) and
    cross_attention_int8 (K4, cross and causal self) against their plain
-   versions at the int8 main path's shapes (K4 also at phase 11's beam fold
-   and at the edges of its key split: 1, 7 and 203 keys), timed in turns as
+   versions at the int8 main path's shapes (also at phase 18's beam bench
+   encoder at batch 48; K4 also at phase 11's and phase 18's beam fold and
+   self cache, and at the edges of its key split: 1, 7 and 203 keys), timed in turns as
    in phase 3, K4's decode shapes also in a CUDA graph, each held to the
    plain version. Every case draws its inputs from a generator of its own,
    seeded from its name. K4's f32 check adds a flipped bf16 rounding of
@@ -53,7 +54,8 @@ then exits non-zero without the final "ok" line:
    graph), permute_rows_multi (K6, on
    the 160-row int8 cache's four leaves with repeated rows, and on a bf16
    K/V pair) and cow_copy_rows (K7, the int8 cache with 1, 8, 32 and 96
-   forked rows from cow_assign) against their plain versions, timed in turns, with
+   forked rows from cow_assign, and phase 18's 240-row cache with 144)
+   against their plain versions, timed in turns, with
    the time of one PyTorch library call for the same function beside them.
 10. beam parity: phase 4's checkpoint, beam 3, both decode_full routes on
    the CPU (plain versions) and on the card (kernels); tokens must be
@@ -72,7 +74,8 @@ then exits non-zero without the final "ok" line:
    statistics, the fused backward kernel) forward and backward against
    autograd of the plain version at the training path's shapes (large-v3
    encoder at batch 2, f32 and bf16; its causal decoder over a 64-token
-   bucket), and the backward kernel alone against the plain backward
+   bucket; phase 20's fine-tune at batch 16: its encoder over 64 positions
+   and its causal decoder over 31), and the backward kernel alone against the plain backward
    (flash_sdpa_backward) on the same (q, k, v, out, lse, g), and
    flash_attention's qk_int8 variant (K1b) against its plain version at the
    encoder's (160, 1500, 64), bf16 and f32, causal or not; timed in turns,
@@ -111,10 +114,47 @@ then exits non-zero without the final "ok" line:
    inputs at the first call of each shape (K1_CASES and K5_CASES carry the
    path's shapes too: the short "auto" windows, language ID's cache of 8,
    the word-timing prefill).
-Phases 16 and 17 run after phase 12, while phase 5's model is loaded.
+18. bench: python -m whisper_tpu_torch.utils.benchmark in a subprocess,
+   twice, for BENCH_SECONDS each: large-v3 int8 greedy at batch 64 and
+   beam 5 at bench.py's batch 48; each one JSON line is parsed and printed,
+   and its kernels must have launched at every timed step. The memory
+   guard's estimate is printed beside the peak allocated and reserved
+   memory of phases 8, 11 and 18 (phases 8 and 11 with phase 5's model
+   resident too), the guard must admit every serving configuration the
+   smoke runs (guarded(), from the phases' own constants), and each bench
+   process's peak reserved memory must stay within PEAK_OVER_ESTIMATE
+   times the estimate (the guard's calibration).
+19. chunked, streaming, CLI: phase 4's f32 checkpoint through
+   transcribe_chunked (disjoint and 5 s overlap), StreamingTranscriber fed
+   5 s increments and python -m whisper_tpu_torch.cli transcribe
+   --output-json, on the CPU (plain versions) and on the card (kernels):
+   text and segments identical (the stream's also equal to offline
+   transcribe). Then phase 5's large-v3 bf16 model runs transcribe_chunked
+   on phase 17's WAV twice (3 windows in one batch, language ID, the
+   lockstep device loop): audio seconds per wall second, stage walls, K1
+   once per encoder layer and K5 n_text_layer times a forward; the first
+   run holds K1 and K5 to their plain versions at every shape it gives them.
+   Last, load_model of phase 5's GGML with the native reader and the
+   Python one, in turns: the wall of each.
+20. tone-word round trip (tests/test_wer_roundtrip.py on the card): a micro
+   config (state 64, 2 + 2 layers, one head: the kernels take d_head 64
+   only, so the JAX test's two heads of 32 become one of 64) trained from
+   scratch by finetune for 700 steps at batch 16 on utils/synth tone words,
+   written with write_ggml, reloaded with load_model(use_native=True) (the
+   native reader asserted), and scored by python -m whisper_tpu_torch.cli
+   eval over held-out WAVs: WER below 0.6, the JAX test's bound. The same
+   WAVs with int8 decoder weights: WER and the share of utterances whose
+   tokens equal the f32 run's. Every shape the fine-tune gives flash_sdpa
+   must be one of phase 13's K1C_CASES, and the in-process decode holds K1
+   and K5 to their plain versions at every shape it gives them.
+Phases 16, 17 and 19 run after phase 12, while phase 5's model is loaded;
+phase 18 after them, phase 20 last.
 
 The line before the last is the kernels JSON: every kernel with its
-main-path launches (K1 and K5 with phase 17's added), error against its plain version, kernel, plain and
+main-path launches (K1 and K5 with phases 17 and 19 added, the int8 step's
+kernels with phase 18's timed steps, the beam bench's K4 and K7 and phase
+20's fine-tune in rows of their own at their shapes, K1c with phase 15's),
+error against its plain version, kernel, plain and
 library times (K4 cross and self and K5 also the time of one call in a CUDA
 graph, "graph_ms"), and its bound (bytes over 3.35 TB/s or operations over the
 peak rate of their type, whichever is larger; under a causal mask only the
@@ -126,10 +166,13 @@ convolutions, so the f32 comparisons are full f32.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
+import os
 import subprocess
+import sys
 import time
 import zlib
 from pathlib import Path
@@ -138,13 +181,15 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from whisper_tpu_torch.config import PRESETS, SAMPLE_RATE, WhisperConfig
+from whisper_tpu_torch.config import (CARD_MEMORY_FRACTION, PEAK_OVER_ESTIMATE, PRESETS,
+                                      SAMPLE_RATE, WhisperConfig, check_serving_hbm)
 from whisper_tpu_torch.decoding.device_beam import cow_assign
 from whisper_tpu_torch.decoding.sequence import BeamSearchDecoder
 from whisper_tpu_torch.decoding.task import DecodingOptions, decode_full
 from whisper_tpu_torch.frontend.mel import (frame_count, log_mel_spectrogram, mel_filter_bank,
                                             mel_window)
 from whisper_tpu_torch.io.ggml import tensor_schema, write_ggml
+from whisper_tpu_torch.io.vocab import make_vocab
 from whisper_tpu_torch.io.wav import load_wav, write_wav
 from whisper_tpu_torch.kernels import beam_gather, build
 from whisper_tpu_torch.kernels import fused_quant
@@ -166,17 +211,34 @@ from whisper_tpu_torch.model import decoder as decoder_module
 from whisper_tpu_torch.model.decoder import KVCache, decode_step, init_cache
 from whisper_tpu_torch.model.encoder import encode
 from whisper_tpu_torch.model.load import load_model, random_model
+from whisper_tpu_torch.model.params import params_to_ggml
 from whisper_tpu_torch.model.quant import (QuantKV, init_quant_cache, qk_logits, quantize_act,
-                                           quantize_kv)
+                                           quantize_decoder_weights, quantize_kv)
 from whisper_tpu_torch.parallel.serving import BatchTranscriber
+from whisper_tpu_torch.pipeline.chunked import transcribe_chunked
+from whisper_tpu_torch.pipeline.streaming import StreamingTranscriber
 from whisper_tpu_torch.pipeline.transcribe import TranscribeOptions, transcribe
+from whisper_tpu_torch.runtime import native
 from whisper_tpu_torch.training import finetune as finetune_module
 from whisper_tpu_torch.training.train import (init_train_state, leaves, make_optimizer,
                                               make_train_step)
-from whisper_tpu_torch.utils.benchmark import make_serving_step, prepare_serving_params
+from whisper_tpu_torch.utils import synth
+from whisper_tpu_torch.utils.benchmark import (bench_config_from_env, kernel_launches,
+                                               make_serving_step, serving_ctx,
+                                               prepare_serving_params)
+from whisper_tpu_torch.utils.wer import wer
 
 ROOT = Path(__file__).resolve().parent
+# The large-v3 serving configurations of the phases, shared with phase 18's
+# memory guard (guarded): phase 5's streams and sample length, phase 8's
+# batch and tokens (phase 11's tokens too), phase 12's streams, phase 17's
+# best_of.
+MAIN_STREAMS, MAIN_SAMPLE_LEN = 8, 64
+INT8_BATCH, INT8_TOKENS = 64, 64
+HOST_BEAM_STREAMS = 4
+WF_BEST_OF = 2
 CKPT_DIR = ROOT / "build" / "synthetic"
+LARGE_V3_CKPT = CKPT_DIR / "large-v3-f16-seed0.bin"  # phase 5's, reloaded in phase 19
 
 # Tolerances (atol, rtol), kernel vs plain version on the same inputs; an
 # element passes when |kernel - plain| <= atol + rtol * |plain|:
@@ -420,6 +482,11 @@ K1_CASES = [  # (batch, heads, tq, tk, causal, dtype)
     (1, 20, 256, 256, False, torch.bfloat16),
     (1, 20, 512, 512, False, torch.bfloat16),
     (1, 20, 768, 768, False, torch.bfloat16),
+    # transcribe_chunked's batched encodes: phase 19's 3 windows, and its
+    # largest batch of 16 windows
+    (3, 20, 1500, 1500, False, torch.bfloat16),
+    (16, 20, 1500, 1500, False, torch.bfloat16),
+    (48, 20, 1500, 1500, False, torch.bfloat16),  # phase 18's beam bench encodes b48
 ]
 
 
@@ -453,7 +520,7 @@ def phase_kernel(card: str) -> dict:
         if not ok:
             raise AssertionError(f"flash_attention disagrees with its plain version: "
                                  f"max_abs_err {err}, atol {atol}, rtol {rtol}")
-        if tq == tk == 1500 and b in (8, 64):  # TF32 off: the f32 library call is f32 too
+        if tq == tk == 1500:  # TF32 off: the f32 library call is f32 too
             lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), iters)
             log(f"[kernel] flash_attention ({b * h}, {tq}x{tk}, 64) {str(dtype)[6:]}: kernel "
                 f"{ms:.4f} ms, F.scaled_dot_product_attention {lib_ms:.4f} ms "
@@ -541,7 +608,7 @@ def phase_main_path(card: str):
     """Returns (the first run's launches, the bf16 large-v3 model)."""
     cfg = PRESETS["large-v3"]
     CKPT_DIR.mkdir(parents=True, exist_ok=True)
-    path = CKPT_DIR / "large-v3-f16-seed0.bin"
+    path = LARGE_V3_CKPT
     t0 = time.perf_counter()
     if not path.exists():
         write_checkpoint(path, cfg, seed=0, scale=0.02)
@@ -552,8 +619,9 @@ def phase_main_path(card: str):
     torch.cuda.synchronize()
     log(f"[main] load_model bf16 on cuda: {time.perf_counter() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
-    audios = [synthetic_audio(SAMPLE_RATE * 30, seed=100 + i) for i in range(8)]
-    bt = BatchTranscriber(model, 8, options=DecodingOptions(sample_len=64,
+    audios = [synthetic_audio(SAMPLE_RATE * 30, seed=100 + i) for i in range(MAIN_STREAMS)]
+    bt = BatchTranscriber(model, MAIN_STREAMS, options=DecodingOptions(
+        sample_len=MAIN_SAMPLE_LEN,
                                                              without_timestamps=False))
     launches = None
     for run in (1, 2):
@@ -571,13 +639,14 @@ def phase_main_path(card: str):
         peak = torch.cuda.max_memory_allocated()
         tm = model.timers.totals
         n_tok = sum(len(r.tokens) for r in results)
-        log(f"[main] run {run}: 8 x 30 s, bf16, greedy, timestamps, sample_len 64: "
+        log(f"[main] run {run}: {MAIN_STREAMS} x 30 s, bf16, greedy, timestamps, sample_len "
+            f"{MAIN_SAMPLE_LEN}: "
             f"mel {tm['mel'] * 1e3:.1f} ms, encode {tm['encode'] * 1e3:.1f} ms, "
             f"decode {tm['decode'] * 1e3:.1f} ms, total {wall * 1e3:.1f} ms; "
             f"{n_tok} tokens; peak {peak / 1e9:.2f} GB; flash_attention launches {n_launch}, "
             f"cached_attention {n_k5} ({n_k5 // cfg.n_text_layer} forwards); {card}")
-        if len(results) != 8:
-            raise AssertionError(f"expected 8 results, got {len(results)}")
+        if len(results) != MAIN_STREAMS:
+            raise AssertionError(f"expected {MAIN_STREAMS} results, got {len(results)}")
         for r in results:
             if not all(0 <= t < cfg.n_vocab for t in r.tokens):
                 raise AssertionError(f"token out of the vocab: {r.tokens}")
@@ -609,8 +678,14 @@ FQ_CASES = [  # (name, mode, rows, d, dtype, elements before x's base)
     ("act-d1283", "act", 2 * 1500, 1283, torch.bfloat16, 0),
     ("ln-offset", "ln", 2 * 1500, 1280, torch.bfloat16, 1),
     ("act-offset", "act", 2 * 1500, 1280, torch.bfloat16, 1),
+    # phase 18's beam bench: the W8A8 encoder at batch 48
+    ("act-b48", "act", 48 * 1500, 1280, torch.bfloat16, 0),
+    ("ln-b48", "ln", 48 * 1500, 1280, torch.bfloat16, 0),
+    ("gelu-erf-b48", "gelu-erf", 48 * 1500, 5120, torch.bfloat16, 0),
 ]
 BEAM_GROUPS, BEAM = 32, 5  # phase 11: 32 windows x 5 beams = 160 decoder rows
+# phase 18's beam bench: bench.py's batch with a beam (48 windows x 5 beams = 240 rows)
+BENCH_BEAM_GROUPS = bench_config_from_env({"BENCH_BEAM": str(BEAM)})["batch"]
 K4_CASES = [  # (name, batch, heads, tq, keys, n_past, dtype); n_past None: cross
     ("cross", 64, 20, 1, 1500, None, torch.bfloat16),  # decode step, large-v3 b64
     ("cross-t3", 64, 20, 3, 1500, None, torch.bfloat16),  # prefill of the 3-token prompt
@@ -622,6 +697,16 @@ K4_CASES = [  # (name, batch, heads, tq, keys, n_past, dtype); n_past None: cros
     ("cross-beam5", BEAM_GROUPS, 20, BEAM, 1500, None, torch.bfloat16),  # phase 11's beam fold
     # phase 11's prefill of the 3-token prompt, folded: 15 query rows, two row blocks
     ("cross-beam-prefill", BEAM_GROUPS, 20, 3 * BEAM, 1500, None, torch.bfloat16),
+    # the self cache of the greedy step's prefill (phases 8 and 18), and of
+    # the beam steps, one row a beam: phase 11's 160 rows, phase 18's 240
+    ("self-t3", 64, 20, 3, 75, 0, torch.bfloat16),
+    ("self-beam", BEAM_GROUPS * BEAM, 20, 1, 75, 40, torch.bfloat16),
+    ("self-beam-t3", BEAM_GROUPS * BEAM, 20, 3, 75, 0, torch.bfloat16),
+    # phase 18's beam bench at 48 windows: the fold, its prefill, the self cache
+    ("cross-beam5-b48", BENCH_BEAM_GROUPS, 20, BEAM, 1500, None, torch.bfloat16),
+    ("cross-beam-prefill-b48", BENCH_BEAM_GROUPS, 20, 3 * BEAM, 1500, None, torch.bfloat16),
+    ("self-beam-b48", BENCH_BEAM_GROUPS * BEAM, 20, 1, 75, 40, torch.bfloat16),
+    ("self-beam-t3-b48", BENCH_BEAM_GROUPS * BEAM, 20, 3, 75, 0, torch.bfloat16),
     # edges of the key split: one key, keys not a multiple of 4 (rows of K
     # at odd byte offsets), a count that leaves the last rank short
     ("cross-c1", 4, 20, 1, 1, None, torch.bfloat16),
@@ -914,13 +999,7 @@ def _zero_launches() -> None:
 
 
 def _read_launches() -> dict:
-    return {"k1": flash_attention.launches, "k1_f32": flash_attention.f32_launches,
-            "k1b": flash_attention.int8_launches, "k1c_bwd": flash_sdpa.bwd_launches,
-            "act": fused_quant.act_quant.launches,
-            "ln": fused_quant.ln_quant.launches, "gelu": fused_quant.gelu_quant.launches,
-            "k4": cross_attention_int8.launches, "k4_self": cross_attention_int8.masked_launches,
-            "k5": cached_attention.launches, "k6": beam_gather.permute_rows_multi.launches,
-            "k7": beam_gather.cow_copy_rows.launches}
+    return kernel_launches()
 
 
 def phase_int8_main_path(card: str, model):
@@ -932,7 +1011,7 @@ def phase_int8_main_path(card: str, model):
     torch.cuda.synchronize()
     log(f"[int8-main] prepare_serving_params on cuda: {time.perf_counter() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated (the bf16 model included)")
-    batch, n_tok = 64, 64
+    batch, n_tok = INT8_BATCH, INT8_TOKENS
     step = make_serving_step(served, batch, n_tok, "int8")
     audio = synthetic_audio(SAMPLE_RATE * 30, seed=100)
     L = cfg.n_audio_layer
@@ -996,6 +1075,12 @@ K5_CASES = [  # (name, batch, heads, tq, ctx, n_past, dtype): layer 2 of a (B, 4
     ("wt-27", 1, 20, 27, 27, 0, torch.bfloat16),
     ("wt-229", 1, 20, 229, 229, 0, torch.bfloat16),
     ("prompt-256", 2, 20, 256, 448, 0, torch.bfloat16),
+    # phase 19's chunked lockstep over 3 windows: language ID's cache of 8,
+    # the 32-token prompt bucket and the steps over its 264-position cache
+    # (32 + 224 + 8)
+    ("chunk-lang-id", 3, 20, 1, 8, 0, torch.bfloat16),
+    ("chunk-b3-prefill", 3, 20, 32, 264, 0, torch.bfloat16),
+    ("chunk-b3", 3, 20, 1, 264, 40, torch.bfloat16),
 ]
 
 
@@ -1086,59 +1171,67 @@ def _k6_cases(card: str, gen, rows: dict) -> None:
     torch.cuda.empty_cache()
 
 
-def _fork_src(n_forks: int) -> torch.Tensor:
-    """copy_src of cow_assign over 32 groups of 5 beams with ``n_forks``
-    forked rows spread over the groups: a group with f forks takes beam 0
-    f + 1 times and drops its last f beams."""
+def _fork_src(n_forks: int, groups: int = BEAM_GROUPS) -> torch.Tensor:
+    """copy_src of cow_assign over ``groups`` groups of 5 beams with
+    ``n_forks`` forked rows spread over the groups: a group with f forks
+    takes beam 0 f + 1 times and drops its last f beams."""
     rows = []
-    for g in range(BEAM_GROUPS):
-        f = n_forks // BEAM_GROUPS + (g < n_forks % BEAM_GROUPS)
+    for g in range(groups):
+        f = n_forks // groups + (g < n_forks % groups)
         rows.append([0] * (f + 1) + list(range(1, BEAM - f)))
     new_src = torch.tensor(rows, device="cuda")
-    phys = torch.arange(BEAM, device="cuda").repeat(BEAM_GROUPS, 1)
+    phys = torch.arange(BEAM, device="cuda").repeat(groups, 1)
     _, copy_src = cow_assign(phys, new_src, BEAM)
-    return (copy_src + torch.arange(BEAM_GROUPS, device="cuda")[:, None] * BEAM).reshape(-1)
+    return (copy_src + torch.arange(groups, device="cuda")[:, None] * BEAM).reshape(-1)
+
+
+K7_CASES = [  # (groups of BEAM rows, forked rows); 96: phase 11's reading, ~96.5 a step
+    (BEAM_GROUPS, 1), (BEAM_GROUPS, 8), (BEAM_GROUPS, 32), (BEAM_GROUPS, 96),
+    (BENCH_BEAM_GROUPS, 144),  # phase 18's beam bench, 240 rows at phase 11's share
+]
 
 
 def _k7_cases(card: str, gen, rows: dict) -> None:
-    leaves = _int8_beam_cache(gen, BEAM_GROUPS * BEAM, 75)
-    row_bytes = sum(a[0].numel() * a.element_size() for a in leaves)
-    for n_forks in (1, 8, 32, 96):  # 96: phase 11's reading, ~96.5 forked rows a step
-        src = _fork_src(n_forks)
-        ar = torch.arange(src.numel(), device="cuda")
-        if int((src != ar).sum()) != n_forks:
-            raise AssertionError(f"cow_assign forked {int((src != ar).sum())} rows, "
-                                 f"expected {n_forks}")
-        before = [a.clone() for a in leaves]
-        want = beam_gather.cow_copy_rows_reference([a.clone() for a in leaves], src)
-        beam_gather.cow_copy_rows(leaves, src)
-        torch.cuda.synchronize()
-        same = all(torch.equal(a, w) for a, w in zip(leaves, want))
-        ident = src == ar
-        untouched = all(torch.equal(a[ident], b[ident]) for a, b in zip(leaves, before))
-        dst = ar[~ident]
-        srcs = src[dst]
-        ms, plain_ms, t = in_turns(lambda: beam_gather.cow_copy_rows_reference(leaves, src),
-                                   lambda: beam_gather.cow_copy_rows(leaves, src), 20)
-        lib_ms = cuda_ms(lambda: [a.index_copy_(0, dst, a.index_select(0, srcs))
-                                  for a in leaves], 20)
-        g_ms = graph_ms(lambda: beam_gather.cow_copy_rows(leaves, src), 20)
-        # each forked row written once, each distinct source row read once
-        moved = (n_forks + srcs.unique().numel()) * row_bytes + nbytes(src)
-        b_ms, by = bound_ms(moved, 0, torch.bfloat16)
-        log(f"[decode-kernel] cow_copy_rows int8 cache (160 rows, 4 leaves, {row_bytes / 1e6:.2f} "
-            f"MB a row), {n_forks} forked rows: {'bit-exact' if same else 'DIFFERS'}, identity "
-            f"rows {'untouched' if untouched else 'CHANGED'}; kernel {ms:.4f} ms ({t[1]:.4f}, "
-            f"{t[2]:.4f}), plain {plain_ms:.4f} ms ({t[0]:.4f}, {t[3]:.4f}), index_copy_ per "
-            f"leaf {lib_ms:.4f} ms; kernel in a CUDA graph {g_ms:.4f} ms; bound {b_ms:.4f} ms "
-            f"({by}); {card}")
-        if not (same and untouched):
-            raise AssertionError(f"cow_copy_rows with {n_forks} forks differs from its plain "
-                                 f"version or touched an identity row")
-        rows[f"k7-{n_forks}"] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
-                                 "bound_ms": b_ms, "bound_by": by, "library_ms": lib_ms}
-        del before, want
-    del leaves
+    for groups in dict.fromkeys(g for g, _ in K7_CASES):
+        leaves = _int8_beam_cache(gen, groups * BEAM, 75)
+        row_bytes = sum(a[0].numel() * a.element_size() for a in leaves)
+        for n_forks in (n for g, n in K7_CASES if g == groups):
+            src = _fork_src(n_forks, groups)
+            ar = torch.arange(src.numel(), device="cuda")
+            if int((src != ar).sum()) != n_forks:
+                raise AssertionError(f"cow_assign forked {int((src != ar).sum())} rows, "
+                                     f"expected {n_forks}")
+            before = [a.clone() for a in leaves]
+            want = beam_gather.cow_copy_rows_reference([a.clone() for a in leaves], src)
+            beam_gather.cow_copy_rows(leaves, src)
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, w) for a, w in zip(leaves, want))
+            ident = src == ar
+            untouched = all(torch.equal(a[ident], b[ident]) for a, b in zip(leaves, before))
+            dst = ar[~ident]
+            srcs = src[dst]
+            ms, plain_ms, t = in_turns(lambda: beam_gather.cow_copy_rows_reference(leaves, src),
+                                       lambda: beam_gather.cow_copy_rows(leaves, src), 20)
+            lib_ms = cuda_ms(lambda: [a.index_copy_(0, dst, a.index_select(0, srcs))
+                                      for a in leaves], 20)
+            g_ms = graph_ms(lambda: beam_gather.cow_copy_rows(leaves, src), 20)
+            # each forked row written once, each distinct source row read once
+            moved = (n_forks + srcs.unique().numel()) * row_bytes + nbytes(src)
+            b_ms, by = bound_ms(moved, 0, torch.bfloat16)
+            log(f"[decode-kernel] cow_copy_rows int8 cache ({groups * BEAM} rows, 4 leaves, "
+                f"{row_bytes / 1e6:.2f} MB a row), {n_forks} forked rows: "
+                f"{'bit-exact' if same else 'DIFFERS'}, identity rows "
+                f"{'untouched' if untouched else 'CHANGED'}; kernel {ms:.4f} ms ({t[1]:.4f}, "
+                f"{t[2]:.4f}), plain {plain_ms:.4f} ms ({t[0]:.4f}, {t[3]:.4f}), index_copy_ "
+                f"per leaf {lib_ms:.4f} ms; kernel in a CUDA graph {g_ms:.4f} ms; bound "
+                f"{b_ms:.4f} ms ({by}); {card}")
+            if not (same and untouched):
+                raise AssertionError(f"cow_copy_rows with {n_forks} forks differs from its "
+                                     f"plain version or touched an identity row")
+            rows[f"k7-{n_forks}"] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                                     "bound_ms": b_ms, "bound_by": by, "library_ms": lib_ms}
+            del before, want
+        del leaves
     torch.cuda.empty_cache()
 
 
@@ -1190,7 +1283,7 @@ def phase_int8_beam_main_path(card: str, served) -> dict:
     second run's launches."""
     cfg = served.config
     L = cfg.n_text_layer
-    step = make_serving_step(served, BEAM_GROUPS, 64, "int8", beam_size=BEAM)
+    step = make_serving_step(served, BEAM_GROUPS, INT8_TOKENS, "int8", beam_size=BEAM)
     audio = synthetic_audio(SAMPLE_RATE * 30, seed=100)
     # The first run wraps the decoder's K4 name to record the cross calls' q
     # shapes, and the device beam's K7 name to sum the forked rows on the
@@ -1262,8 +1355,9 @@ def phase_host_beam(card: str, model) -> dict:
     second run's launches."""
     cfg = model.config
     L = cfg.n_text_layer
-    audios = [synthetic_audio(SAMPLE_RATE * 30, seed=200 + i) for i in range(4)]
-    bt = BatchTranscriber(model, 4, options=DecodingOptions(beam_size=BEAM, sample_len=32))
+    audios = [synthetic_audio(SAMPLE_RATE * 30, seed=200 + i) for i in range(HOST_BEAM_STREAMS)]
+    bt = BatchTranscriber(model, HOST_BEAM_STREAMS,
+                          options=DecodingOptions(beam_size=BEAM, sample_len=32))
     # The first run counts the steps whose beam sources moved, from the beam
     # decoder's own output: the host loop must reorder the cache (one K6) at
     # each of them.
@@ -1315,6 +1409,49 @@ def phase_host_beam(card: str, model) -> dict:
     log(f"[host-beam] stream 0: {results[0].tokens[:12]}... avg_logprob "
         f"{results[0].avg_logprob:.4f}")
     return n
+
+
+@contextlib.contextmanager
+def checking_kernels(checked: dict):
+    """K1 (the encoder's flash_sdpa) and K5 (the decoder's cached_attention)
+    wrapped so that the first call of every shape they are given is held to
+    its plain version on the path's own inputs (K5 at n_past 0 and after),
+    each result in ``checked`` under its shape; restored on exit."""
+    from whisper_tpu_torch.model import encoder as encoder_module
+    real_k1, real_k5 = encoder_module.flash_sdpa, decoder_module.cached_attention
+
+    def k1_spy(q, k, v, causal=False):
+        out = real_k1(q, k, v, causal)
+        key = ("K1", *q.shape, k.shape[-2])
+        if key not in checked:
+            checked[key] = _within(out, flash_attention_reference(q, k, v, causal),
+                                   K1_TOL[q.dtype])
+        return out
+
+    def k5_spy(q, k, v, n_past):
+        out = real_k5(q, k, v, n_past)
+        key = ("K5", *q.shape, k.shape[-1], "n_past 0" if n_past == 0 else "n_past > 0")
+        if key not in checked:
+            checked[key] = _within(out, cached_attention_reference(q, k, v, n_past),
+                                   K5_TOL[q.dtype])
+        return out
+
+    encoder_module.flash_sdpa, decoder_module.cached_attention = k1_spy, k5_spy
+    try:
+        yield
+    finally:
+        encoder_module.flash_sdpa, decoder_module.cached_attention = real_k1, real_k5
+
+
+def check_path_shapes(tag: str, path: str, checked: dict) -> None:
+    """Log what checking_kernels found and fail unless every shape held."""
+    for key, (ok, err) in sorted(checked.items(), key=str):
+        log(f"[{tag}]   {key[0]} at q {tuple(key[1:5])} over {key[5]} keys"
+            f"{f', {key[6]}' if len(key) > 6 else ''}: max_abs_err {err:.3e} against "
+            f"its plain version: {'within' if ok else 'OUTSIDE'} "
+            f"{'K1_TOL' if key[0] == 'K1' else 'K5_TOL'}")
+    if not checked or not all(ok for ok, _ in checked.values()):
+        raise AssertionError(f"K1 or K5 disagrees with its plain version at a shape of {path}")
 
 
 WF_SECONDS = 64  # phase 17's clip: two full windows and a short last one (PERF.md §4)
@@ -1394,34 +1531,17 @@ def phase_whisper_full(card: str, model) -> dict:
     audio_ctx "auto", twice; the second run timed. Returns its launches."""
     cfg = model.config
     wav_path, _ = _wav_clip(WF_SECONDS, seed=64)
-    opts = TranscribeOptions(language=None, temperature=(0.0, 0.4), best_of=2,
+    opts = TranscribeOptions(language=None, temperature=(0.0, 0.4), best_of=WF_BEST_OF,
                              word_timestamps=True, audio_ctx="auto")
     # Light spies (each hands on to the real function): the ladder's rungs,
     # the encoder calls and the decoder forwards (every forward, decode_step
     # or cross_attention_probs, embeds its tokens once). Run 1 also holds K1
-    # and K5 to their plain versions on the path's own inputs, at the first
-    # call of every shape the path gives them (K5 at n_past 0 and after).
+    # and K5 to their plain versions on the path's own inputs
+    # (checking_kernels).
     from whisper_tpu_torch.model import encoder as encoder_module
     from whisper_tpu_torch.pipeline import transcribe as transcribe_module
     real = (transcribe_module.decode_full, encoder_module.encode, decoder_module._embed)
-    real_k1, real_k5 = encoder_module.flash_sdpa, decoder_module.cached_attention
     rungs, frames, forwards, checked = [], [], [0], {}
-
-    def k1_spy(q, k, v, causal=False):
-        out = real_k1(q, k, v, causal)
-        key = ("K1", *q.shape, k.shape[-2])
-        if key not in checked:
-            checked[key] = _within(out, flash_attention_reference(q, k, v, causal),
-                                   K1_TOL[q.dtype])
-        return out
-
-    def k5_spy(q, k, v, n_past):
-        out = real_k5(q, k, v, n_past)
-        key = ("K5", *q.shape, k.shape[-1], "n_past 0" if n_past == 0 else "n_past > 0")
-        if key not in checked:
-            checked[key] = _within(out, cached_attention_reference(q, k, v, n_past),
-                                   K5_TOL[q.dtype])
-        return out
 
     def decode_spy(decoder, vocab, cross_k, cross_v, options, **kw):
         rungs.append(options.temperature)
@@ -1445,15 +1565,13 @@ def phase_whisper_full(card: str, model) -> dict:
         _zero_launches()
         transcribe_module.decode_full, encoder_module.encode, decoder_module._embed = (
             decode_spy, encode_spy, embed_spy)
-        if run == 1:
-            encoder_module.flash_sdpa, decoder_module.cached_attention = k1_spy, k5_spy
         try:
-            t0 = time.perf_counter()
-            res = transcribe(model, wav_path, opts)
-            wall = time.perf_counter() - t0
+            with checking_kernels(checked) if run == 1 else contextlib.nullcontext():
+                t0 = time.perf_counter()
+                res = transcribe(model, wav_path, opts)
+                wall = time.perf_counter() - t0
         finally:
             transcribe_module.decode_full, encoder_module.encode, decoder_module._embed = real
-            encoder_module.flash_sdpa, decoder_module.cached_attention = real_k1, real_k5
         n = _read_launches()
         tm = model.timers.totals
         segs = res["segments"]
@@ -1466,7 +1584,7 @@ def phase_whisper_full(card: str, model) -> dict:
         stages = ", ".join(f"{k} {tm.get(k, 0.0) * 1e3:.1f} ms"
                            for k in ("mel", "lang_id", "encode", "decode", "word_align"))
         log(f"[wf-main] run {run}: large-v3 bf16, {res['duration']:.1f} s WAV, language "
-            f"{res['language']!r} detected, temperature (0.0, 0.4), best_of 2, word "
+            f"{res['language']!r} detected, temperature (0.0, 0.4), best_of {WF_BEST_OF}, word "
             f"timestamps, audio_ctx auto: {windows} windows decoded (mel frames {frames}), "
             f"rungs per window {per_window}; {stages}; total {wall * 1e3:.1f} ms, "
             f"{res['duration'] / wall:.3f} s of audio per wall second; {len(segs)} segments, "
@@ -1475,14 +1593,7 @@ def phase_whisper_full(card: str, model) -> dict:
             f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; {forwards[0]} decoder "
             f"forwards; launches {n}; {card}")
         if run == 1:
-            for key, (ok, err) in sorted(checked.items(), key=str):
-                log(f"[wf-main]   {key[0]} at q {tuple(key[1:5])} over {key[5]} keys"
-                    f"{f', {key[6]}' if len(key) > 6 else ''}: max_abs_err {err:.3e} against "
-                    f"its plain version: {'within' if ok else 'OUTSIDE'} "
-                    f"{'K1_TOL' if key[0] == 'K1' else 'K5_TOL'}")
-            if not checked or not all(ok for ok, _ in checked.values()):
-                raise AssertionError("K1 or K5 disagrees with its plain version at a shape "
-                                     "of the whisper_full path")
+            check_path_shapes("wf-main", "the whisper_full path", checked)
         if not (windows >= 3 and len(per_window) == windows
                 and all(f == 3000 or f % 512 == 0 for f in frames)):
             raise AssertionError(f"windows: mel frames {frames}, rungs {per_window}")
@@ -1510,6 +1621,11 @@ K1C_CASES = [  # (batch·heads, tq, tk, causal, dtype): the training path at bat
     (2 * 20, 1500, 1500, False, torch.float32),   # large-v3 encoder self-attention, f32
     (2 * 20, 63, 63, True, torch.float32),        # its decoder over a 64-token bucket
     (2 * 20, 1500, 1500, False, torch.bfloat16),
+    # phase 20's tone-word fine-tune at batch 16, one head: the encoder over
+    # n_audio_ctx 64 and the decoder over a 32-token bucket (phase 20 fails
+    # if it gives flash_sdpa a shape that is not listed here)
+    (16, 64, 64, False, torch.float32),
+    (16, 31, 31, True, torch.float32),
 ]
 K1B_CASES = [(160, 1500, False, torch.bfloat16), (160, 1500, True, torch.bfloat16),
              (160, 1500, False, torch.float32), (160, 1500, True, torch.float32)]
@@ -1801,6 +1917,368 @@ def phase_train(card: str) -> dict:
     return n
 
 
+# ---- phases 18-20: the bench, chunked/streaming/CLI, the tone-word round trip ----
+
+BENCH_SECONDS = 15  # phase 18: each bench run's budget (bench.py's BENCH_SECONDS)
+BENCH_RUNS = [("greedy-b64", {}), ("beam5-b48", {"BENCH_BEAM": "5"})]  # bench.py's batches
+def task_ctx(sample_len: int) -> int:
+    """Self-cache positions of decode_full's device loop (decoding/task.py):
+    the 32-token prompt bucket, the sample length and 8 spare."""
+    return 32 + sample_len + 8
+
+
+def guarded(cfg: WhisperConfig) -> list:
+    """Every serving configuration the smoke runs on large-v3, as the guard
+    sees it, from the constants the phases run with: (phase, streams, beam,
+    self-cache positions, KV bytes per element). The host beam (phase 12)
+    and whisper_full (phase 17) keep a cache of n_text_ctx positions."""
+    out = [("5", MAIN_STREAMS, 1, task_ctx(MAIN_SAMPLE_LEN), 2),
+           ("8", INT8_BATCH, 1, serving_ctx(cfg, INT8_TOKENS), 1),
+           ("11", BEAM_GROUPS, BEAM, serving_ctx(cfg, INT8_TOKENS), 1),
+           ("12", HOST_BEAM_STREAMS, BEAM, cfg.n_text_ctx, 2),
+           ("17", WF_BEST_OF, 1, cfg.n_text_ctx, 2),
+           ("19", CHUNK_WINDOWS, 1, task_ctx(cfg.n_text_ctx // 2), 2)]
+    for name, knobs in BENCH_RUNS:  # as run_benchmark reads them
+        kw = bench_config_from_env(knobs)
+        out.append((f"18 {name}", kw["batch"], kw["beam_size"] or 1, serving_ctx(cfg, 64),
+                    1 if kw["kv_dtype"] == "int8" else 2))
+    return out
+
+
+def guard_reading(tag: str, batch: int, beam: int, ctx: int, kv_bytes: int) -> dict:
+    """The guard's estimate for a large-v3 configuration beside this
+    process's peaks since the last reset. Phases 8 and 11 hold phase 5's
+    bf16 model as well, so their readings are not the guard's calibration
+    (config.PEAK_OVER_ESTIMATE comes from phase 18's processes, which hold
+    only the guarded model)."""
+    est = check_serving_hbm(PRESETS["large-v3"], batch, beam=beam, ctx=ctx,
+                            kv_dtype_bytes=kv_bytes, what=tag, device="cuda")
+    alloc, reserved = torch.cuda.max_memory_allocated(), torch.cuda.max_memory_reserved()
+    log(f"[{tag}] memory guard: estimate {est['total'] / 1e9:.3f} GB (budget "
+        f"{est['budget'] / 1e9:.3f} GB, {CARD_MEMORY_FRACTION:.4f} of the card); peak allocated "
+        f"{alloc / 1e9:.3f} GB, reserved {reserved / 1e9:.3f} GB (reserved / estimate "
+        f"{reserved / est['total']:.3f}, phase 5's bf16 model included)")
+    return est
+
+
+def phase_bench(card: str) -> dict:
+    """python -m whisper_tpu_torch.utils.benchmark twice in a subprocess
+    each: large-v3 int8 greedy at b64 and beam 5 at b48. Returns each run's
+    launches over its timed steps."""
+    cfg = PRESETS["large-v3"]
+    for name, batch, beam, ctx, kv in guarded(cfg):
+        est = check_serving_hbm(cfg, batch, beam=beam, ctx=ctx, kv_dtype_bytes=kv,
+                                what=f"phase {name}", device="cuda")
+        log(f"[bench] the guard admits phase {name} (batch {batch}, beam {beam}, ctx {ctx}, "
+            f"kv {kv} B): estimate {est['total'] / 1e9:.3f} GB of {est['budget'] / 1e9:.3f} GB")
+    launches = {}
+    for name, knobs in BENCH_RUNS:
+        env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+        env.update(BENCH_SECONDS=str(BENCH_SECONDS), **knobs)
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "whisper_tpu_torch.utils.benchmark"],
+                              cwd=ROOT, env=env, capture_output=True, text=True, timeout=900)
+        wall = time.perf_counter() - t0
+        out = proc.stdout.strip().splitlines()
+        if proc.returncode != 0 or len(out) != 1:
+            raise AssertionError(f"bench {name}: exit {proc.returncode}, stdout {out}, stderr "
+                                 f"{proc.stderr[-3000:]}")
+        print(out[0], flush=True)
+        line = json.loads(out[0])
+        d = line["detail"]
+        n = d["kernel_launches"]
+        est = d["hbm_estimate"]
+        alloc, reserved = d["peak_allocated_bytes"], d["peak_reserved_bytes"]
+        log(f"[bench] {name}: {line['metric']} = {line['value']:.3f} {line['unit']} ({d['iters']} "
+            f"steps in {d['wall_s']:.3f} s after a {d['warmup_s']:.3f} s warm-up; stages "
+            f"{ {k: round(v, 4) for k, v in d['stages_s'].items()} } s; {wall:.1f} s for the "
+            f"process); memory guard: estimate {est['total'] / 1e9:.3f} GB (budget "
+            f"{est['budget'] / 1e9:.3f} GB), peak allocated {alloc / 1e9:.3f} GB, reserved "
+            f"{reserved / 1e9:.3f} GB (reserved / estimate {reserved / est['total']:.3f}); "
+            f"launches over the timed steps {n}; {d['nvidia_smi']}")
+        expect = ("k1", "act", "ln", "gelu", "k4", "k4_self") + (("k7",) if knobs else ())
+        if not (line["metric"].startswith("rtf_torch_large-v3_b") and line["value"] > 0
+                and line["vs_baseline"] is None and d["iters"] >= 1 and d["nvidia_smi"]
+                and d["device"].startswith("cuda") and d["torch"] == torch.__version__):
+            raise AssertionError(f"bench {name}: bad line {line}")
+        if any(n[k] < d["iters"] for k in expect):
+            raise AssertionError(f"bench {name}: a kernel of the serving step was not launched "
+                                 f"every step: {n} over {d['iters']} steps")
+        if reserved > PEAK_OVER_ESTIMATE * est["total"]:
+            raise AssertionError(f"bench {name}: peak reserved {reserved} bytes, more than "
+                                 f"PEAK_OVER_ESTIMATE ({PEAK_OVER_ESTIMATE}) times the guard's "
+                                 f"estimate {est['total']}: the guard's calibration no longer "
+                                 f"holds")
+        launches[name] = n
+    return launches
+
+
+CHUNK_WINDOWS = 3  # phase 19: WF_SECONDS of audio in 30 s windows, one batch
+
+
+def _cli_json(device: str, ckpt: Path, wav: str) -> dict:
+    """python -m whisper_tpu_torch.cli transcribe ... --output-json on
+    ``device``: the file's result for ``wav``."""
+    out = CKPT_DIR / f"cli-transcribe-{device}.json"
+    proc = subprocess.run([sys.executable, "-m", "whisper_tpu_torch.cli", "transcribe",
+                           str(ckpt), wav, "--temperature", "0", "--output-json", str(out),
+                           "--device", device], cwd=ROOT, capture_output=True, text=True,
+                          timeout=900)
+    if proc.returncode != 0:
+        raise AssertionError(f"cli transcribe on {device}: exit {proc.returncode}: "
+                             f"{proc.stderr[-3000:]}")
+    with open(out) as f:
+        return json.load(f)[wav]
+
+
+def phase_chunked_streaming_cli(card: str, model) -> dict:
+    """Phase 4's f32 checkpoint through transcribe_chunked (with and without
+    overlap), StreamingTranscriber (5 s feeds) and the CLI's transcribe
+    --output-json on the CPU and on the card: identical transcripts. Then
+    phase 5's large-v3 bf16 model runs transcribe_chunked on phase 17's WAV
+    twice, the first run holding K1 and K5 to their plain versions at every
+    shape it gives them. Returns the second run's launches."""
+    cfg, path = tiny_checkpoint()
+    models = {dev: load_model(str(path), device=dev, dtype=torch.float32)
+              for dev in ("cpu", "cuda")}
+    wav_path, audio = _wav_clip(35, seed=35)
+    opts = TranscribeOptions(condition_on_previous_text=False, temperature=0.0)
+    for name, overlap in (("chunked", 0.0), ("chunked-overlap-5s", 5.0)):
+        out = {}
+        for dev, m in models.items():  # the card last: its launches are read
+            _zero_launches()
+            out[dev] = transcribe_chunked(m, wav_path if dev == "cuda" else audio, opts,
+                                          overlap_seconds=overlap)
+            n = _read_launches()
+        _same_transcript(name, out["cpu"], out["cuda"])
+        log(f"[chunked] {name}: 35 s WAV, {len({s['seek'] for s in out['cuda']['segments']})} "
+            f"windows in one batch, {len(out['cuda']['segments'])} segments, "
+            f"{sum(len(s['tokens']) for s in out['cuda']['segments'])} tokens: identical on cpu "
+            f"and cuda; launches on cuda {n}; {card}")
+        if n["k1_f32"] != cfg.n_audio_layer or not n["k5"] or n["k5"] % cfg.n_text_layer:
+            raise AssertionError(f"chunked {name}: K1 not once per encoder layer for the one "
+                                 f"batch, or K5 not n_text_layer times a forward: {n}")
+    final, committed = {}, {}
+    for dev, m in models.items():
+        _zero_launches()
+        st = StreamingTranscriber(m, TranscribeOptions(temperature=0.0))
+        committed[dev] = []
+        for start in range(0, len(audio), 5 * SAMPLE_RATE):
+            committed[dev] += st.feed(audio[start: start + 5 * SAMPLE_RATE])["committed"]
+        final[dev] = st.finalize()
+        n = _read_launches()
+    _same_transcript("streaming", final["cpu"], final["cuda"])
+    if [c["tokens"] for c in committed["cpu"]] != [c["tokens"] for c in committed["cuda"]] or \
+            not committed["cuda"]:
+        raise AssertionError("streaming: the committed segments differ between cpu and cuda")
+    offline = transcribe(models["cuda"], audio, TranscribeOptions(temperature=0.0))
+    _same_transcript("streaming vs offline on cuda", offline, final["cuda"])
+    log(f"[streaming] 35 s in 5 s feeds: {len(committed['cuda'])} segments committed while "
+        f"feeding, {len(final['cuda']['segments'])} in the final transcript, identical on cpu "
+        f"and cuda and equal to offline transcribe; launches on cuda {n}; {card}")
+    if not (n["k1_f32"] and n["k5"]):
+        raise AssertionError(f"streaming: K1 or K5 not launched on the card: {n}")
+    cli = {dev: _cli_json(dev, path, wav_path) for dev in ("cpu", "cuda")}
+    _same_transcript("cli transcribe", cli["cpu"], cli["cuda"])
+    log(f"[cli] python -m whisper_tpu_torch.cli transcribe --output-json --device cpu|cuda: "
+        f"{len(cli['cuda']['segments'])} segments, identical; {card}")
+    del models
+
+    wf_path, _ = _wav_clip(WF_SECONDS, seed=64)
+    cfg = model.config
+    checked, n = {}, {}
+    for run in (1, 2):
+        model.timers.totals.clear()
+        model.timers.counts.clear()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_launches()
+        with checking_kernels(checked) if run == 1 else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            res = transcribe_chunked(model, wf_path)
+            wall = time.perf_counter() - t0
+        n = _read_launches()
+        tm = model.timers.totals
+        segs = res["segments"]
+        stages = ", ".join(f"{k} {tm.get(k, 0.0) * 1e3:.1f} ms" for k in ("mel", "encode",
+                                                                           "decode"))
+        log(f"[chunked-main] run {run}: large-v3 bf16, {res['duration']:.1f} s WAV in "
+            f"{model.timers.counts.get('encode', 0)} batch of {CHUNK_WINDOWS} windows, language "
+            f"{res['language']!r} detected, greedy t = 0 in lockstep on the device loop: "
+            f"{stages}; total {wall * 1e3:.1f} ms, {res['duration'] / wall:.3f} s of audio per "
+            f"wall second; {len(segs)} segments, {sum(len(s['tokens']) for s in segs)} tokens; "
+            f"peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches {n}; {card}")
+        if run == 1:
+            check_path_shapes("chunked-main", "the chunked path", checked)
+        if n["k1"] != cfg.n_audio_layer or not n["k5"] or n["k5"] % cfg.n_text_layer:
+            raise AssertionError(f"chunked large-v3: K1 not once per encoder layer for the "
+                                 f"one batch, or K5 not n_text_layer times a forward: {n}")
+        if len({s["seek"] for s in segs}) > CHUNK_WINDOWS or not segs or \
+                res["language"] not in model.vocab.languages:
+            raise AssertionError(f"chunked large-v3: bad result, {len(segs)} segments")
+        for s in segs:
+            if not (all(0 <= t < cfg.n_vocab for t in s["tokens"]) and math.isfinite(
+                    s["avg_logprob"]) and 0.0 <= s["t0"] <= s["t1"] <= res["duration"] + 30):
+                raise AssertionError(f"bad segment {s}")
+    shapes = {key[1] for key in checked if key[0] == "K1"}
+    if shapes != {CHUNK_WINDOWS}:
+        raise AssertionError(f"chunked large-v3 encoded batches of {shapes} windows, not "
+                             f"{CHUNK_WINDOWS}")
+    _load_times(card)
+    return n
+
+
+def _load_times(card: str) -> None:
+    """load_model of phase 5's large-v3 GGML in bf16 on the card with the
+    native reader and with the Python one, in turns (native, Python, Python,
+    native; the file in the page cache since phase 5), each read asserted."""
+    walls = {"ggml-native": [], "ggml-python": []}
+    for kind in ("ggml-native", "ggml-python", "ggml-python", "ggml-native"):
+        before = native.reads.get(kind, 0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = load_model(str(LARGE_V3_CKPT), dtype=torch.bfloat16, device="cuda",
+                       use_native=kind == "ggml-native")
+        torch.cuda.synchronize()
+        walls[kind].append(time.perf_counter() - t0)
+        if native.reads.get(kind, 0) != before + 1:
+            raise AssertionError(f"load_model did not read through {kind}: {native.reads}")
+        del m
+        torch.cuda.empty_cache()
+    nat, py = (sum(walls[k]) / 2 for k in ("ggml-native", "ggml-python"))
+    log(f"[load] load_model large-v3 ({LARGE_V3_CKPT.stat().st_size / 1e9:.2f} GB f16) in bf16 "
+        f"on the card: native reader {nat:.3f} s ({walls['ggml-native'][0]:.3f}, "
+        f"{walls['ggml-native'][1]:.3f}), Python reader {py:.3f} s ({walls['ggml-python'][0]:.3f}, "
+        f"{walls['ggml-python'][1]:.3f}); native / Python {nat / py:.3f}; {card}")
+
+
+# Phase 20: tests/test_wer_roundtrip.py's tone-word round trip. Its config
+# has d_head 32 (state 64, 2 heads); K1, K4 and K5 take d_head 64 only (every
+# Whisper size), so on the card the same config runs with one head.
+RT_STEPS, RT_BATCH = 700, 16
+RT_TRAIN, RT_HELD_OUT = 96, 8
+RT_MAX_WER = 0.6  # the JAX test's own bound
+
+
+def _roundtrip_config() -> WhisperConfig:
+    return WhisperConfig(n_vocab=51864, n_audio_ctx=64, n_audio_state=64, n_audio_head=1,
+                         n_audio_layer=2, n_text_ctx=96, n_text_state=64, n_text_head=1,
+                         n_text_layer=2, n_mels=80, f16=0)
+
+
+def phase_roundtrip(card: str) -> dict:
+    """Train the micro config from scratch on tone words on the card, write
+    it as GGML, reload it through the native reader and score held-out WAVs
+    with ``cli eval`` (WER < RT_MAX_WER); then the same held-out WAVs with
+    int8 decoder weights. Returns the training's launches."""
+    cfg = _roundtrip_config()
+    n_vocab = cfg.n_vocab
+    rng = np.random.default_rng(0)
+    train = [synth.make_pair(rng) for _ in range(RT_TRAIN)]
+    held_out = [synth.make_pair(rng) for _ in range(RT_HELD_OUT)]
+    model = random_model(cfg, seed=0, device="cuda", on_device=False)
+    model = dataclasses.replace(model, vocab=make_vocab(n_vocab, synth.word_tokens(n_vocab),
+                                                        n_vocab))
+    for _, text in train[:4]:
+        if model.vocab.decode(model.vocab.encode(" " + text)).strip() != text:
+            raise AssertionError(f"the tone-word vocab does not round-trip {text!r}")
+    # A light spy on flash_sdpa (it hands on to the real one and launches
+    # nothing itself) records the shapes the fine-tune gives K1c: each must
+    # be a K1C_CASES shape, held to autograd of the plain version there.
+    from whisper_tpu_torch.model import encoder as encoder_module
+    from whisper_tpu_torch.training import train as train_module
+    real_sdpa, sdpa_shapes = train_module.flash_sdpa, set()
+
+    def sdpa_spy(q, k, v, causal=False):
+        sdpa_shapes.add((q.shape[:-2].numel(), q.shape[-2], k.shape[-2], causal, q.dtype))
+        return real_sdpa(q, k, v, causal)
+
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    encoder_module.flash_sdpa = train_module.flash_sdpa = sdpa_spy
+    try:
+        t0 = time.perf_counter()
+        state = finetune_module.finetune(model, train, steps=RT_STEPS, batch_size=RT_BATCH,
+                                         lr=1e-3, warmup=20, log_every=RT_STEPS, seed=0)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+    finally:
+        encoder_module.flash_sdpa = train_module.flash_sdpa = real_sdpa
+    n = _read_launches()
+    unheld = sdpa_shapes - set(K1C_CASES)
+    log(f"[roundtrip] flash_sdpa shapes of the fine-tune (batch·heads, tq, tk, causal, dtype): "
+        f"{sorted(sdpa_shapes, key=str)}, each held in phase 13's K1C_CASES")
+    if unheld or not sdpa_shapes:
+        raise AssertionError(f"the fine-tune gave flash_sdpa shapes that K1C_CASES does not "
+                             f"hold to the plain version: {unheld}")
+    loss = finetune_module.evaluate(model, state.params, train[:RT_BATCH], RT_BATCH, "en")
+    per_step = cfg.n_audio_layer + cfg.n_text_layer
+    log(f"[roundtrip] tone words, d_head 64 (state 64, one head: K1/K4/K5 take d_head 64 "
+        f"only; the JAX test's two heads are d_head 32), {cfg.n_audio_layer} + "
+        f"{cfg.n_text_layer} layers, f32: finetune {RT_STEPS} steps at batch {RT_BATCH} on "
+        f"{RT_TRAIN} pairs in {train_s:.1f} s ({train_s / RT_STEPS * 1e3:.2f} ms a step, "
+        f"batches and mel included), teacher-forced loss {loss:.4f}; peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB; launches {n}; {card}")
+    if n["k1_f32"] != RT_STEPS * per_step or n["k1c_bwd"] != RT_STEPS * per_step or n["k1"]:
+        raise AssertionError(f"finetune did not run K1's f32 kernel and the K1c backward "
+                             f"kernel once per attention layer a step: {n}")
+
+    rt_dir = CKPT_DIR / "roundtrip"
+    data = rt_dir / "held-out"
+    data.mkdir(parents=True, exist_ok=True)
+    ckpt = rt_dir / "tone-words-f32.bin"
+    write_ggml(str(ckpt), cfg, model.filters.cpu().numpy(), synth.word_tokens(n_vocab),
+               params_to_ggml(state.params, cfg))
+    del model, state
+    before = dict(native.reads)
+    reloaded = load_model(str(ckpt), device="cuda", dtype=torch.float32, use_native=True)
+    if native.reads.get("ggml-native", 0) != before.get("ggml-native", 0) + 1:
+        raise AssertionError(f"the checkpoint was not read by the native reader: {native.reads}")
+    wavs = []
+    for i, (audio, text) in enumerate(held_out):
+        wavs.append(str(data / f"utt{i}.wav"))
+        write_wav(wavs[-1], audio)
+        (data / f"utt{i}.txt").write_text(text + "\n")
+
+    proc = subprocess.run([sys.executable, "-m", "whisper_tpu_torch.cli", "eval", str(ckpt),
+                           str(data), "--dtype", "float32", "--language", "en",
+                           "--without-timestamps", "--device", "cuda"],
+                          cwd=ROOT, capture_output=True, text=True, timeout=900)
+    if proc.returncode != 0 or "native reader" not in proc.stderr:
+        raise AssertionError(f"cli eval: exit {proc.returncode}, the native reader not "
+                             f"logged: {proc.stderr[-3000:]}")
+    cli_eval = json.loads(proc.stdout)
+    log(f"[roundtrip] python -m whisper_tpu_torch.cli eval (native reader): {cli_eval}")
+    if not (cli_eval["wer"] < RT_MAX_WER and cli_eval["utterances"] == RT_HELD_OUT):
+        raise AssertionError(f"tone-word WER {cli_eval['wer']} not below {RT_MAX_WER}")
+
+    int8 = reloaded.with_params(quantize_decoder_weights(reloaded.params))
+    opts = TranscribeOptions(language="en", without_timestamps=True)
+    # K1 and K5 held to their plain versions at the first call of every
+    # shape this decode gives them (checking_kernels), which is cli eval's
+    runs, checked = {}, {}
+    for name, m in (("f32", reloaded), ("int8 decoder weights", int8)):
+        wav_reads = native.reads.get("wav-native", 0)
+        with checking_kernels(checked):
+            runs[name] = [transcribe(m, w, opts) for w in wavs]
+        if native.reads.get("wav-native", 0) != wav_reads + len(wavs):
+            raise AssertionError("the held-out WAVs were not read by the native reader")
+    check_path_shapes("roundtrip", "the tone-word decode", checked)
+    refs = [text for _, text in held_out]
+    def tokens(result: dict) -> list:
+        return [t for s in result["segments"] for t in s["tokens"]]
+
+    same = sum(tokens(a) == tokens(b) for a, b in zip(runs["f32"], runs["int8 decoder weights"]))
+    for name, results in runs.items():
+        score = wer(refs, [r["text"] for r in results])
+        log(f"[roundtrip] {name}: WER {score['wer']:.4f} over {score['words']} words "
+            f"({score['substitutions']} substitutions, {score['deletions']} deletions, "
+            f"{score['insertions']} insertions); hypotheses "
+            f"{[r['text'].strip() for r in results]}; references {refs}; {card}")
+    log(f"[roundtrip] int8 decoder weights: {same} of {len(wavs)} held-out utterances "
+        f"({same / len(wavs):.3f}) decode to the f32 run's tokens")
+    return n
+
+
 def main() -> None:
     card = phase_device()
     phase_build()
@@ -1810,57 +2288,83 @@ def main() -> None:
     rows = phase_int8_kernels(card)
     phase_int8_parity(card)
     n, served = phase_int8_main_path(card, model)
+    guard_reading("int8-main", *guarded(model.config)[1][1:])  # phase 8's peaks
     rows.update(phase_decode_kernels(card))
     phase_beam_parity(card)
     beam = phase_int8_beam_main_path(card, served)
+    guard_reading("int8-beam", *guarded(model.config)[2][1:])  # phase 11's
     host = phase_host_beam(card, model)
     phase_whisper_full_parity(card)
     wf = phase_whisper_full(card, model)
+    chunked = phase_chunked_streaming_cli(card, model)
     del model, served
     torch.cuda.empty_cache()
+    bench = phase_bench(card)
+    greedy, beam_bench = bench["greedy-b64"], bench["beam5-b48"]
     train_rows, k1b_entry = phase_train_kernels(card)
     phase_train_parity(card)
     train = phase_train(card)
+    rt = phase_roundtrip(card)
     src, tpu = "whisper_tpu_torch/csrc/", "whisper_tpu/kernels/"
     entries = [
-        # K1's bf16 kernel on both encode paths (phases 5 and 8) and
-        # whisper_full's (phase 17), with the b8 row; the b64 row beside it
-        # with phase 8's launches
+        # K1's bf16 kernel on every encode path (phases 5 and 8, whisper_full's
+        # phase 17, chunked's phase 19 and both bench runs of phase 18), with
+        # the b8 row; the b64 row beside it with phase 8's launches
         ("flash_attention", "flash_attention.cu", "flash_attention.py:141",
-         bf16["k1"] + n["k1"] + wf["k1"], k1["b8"]),
+         bf16["k1"] + n["k1"] + wf["k1"] + chunked["k1"] + greedy["k1"] + beam_bench["k1"],
+         k1["b8"]),
         ("flash_attention.b64", "flash_attention.cu", "flash_attention.py:141", n["k1"],
          k1["b64"]),
-        ("fused_quant.act_quant", "fused_quant.cu", "fused_quant.py:113", n["act"], rows["act"]),
-        ("fused_quant.ln_quant", "fused_quant.cu", "fused_quant.py:113", n["ln"], rows["ln"]),
-        ("fused_quant.gelu_quant", "fused_quant.cu", "fused_quant.py:113", n["gelu"],
-         rows["gelu-erf"]),
+        # the int8 step's kernels: phase 8 and both bench runs (the greedy
+        # bench's K4 in the b64 rows, the beam bench's in rows of its own)
+        ("fused_quant.act_quant", "fused_quant.cu", "fused_quant.py:113",
+         n["act"] + greedy["act"] + beam_bench["act"], rows["act"]),
+        ("fused_quant.ln_quant", "fused_quant.cu", "fused_quant.py:113",
+         n["ln"] + greedy["ln"] + beam_bench["ln"], rows["ln"]),
+        ("fused_quant.gelu_quant", "fused_quant.cu", "fused_quant.py:113",
+         n["gelu"] + greedy["gelu"] + beam_bench["gelu"], rows["gelu-erf"]),
         ("cross_attention_int8.cross", "cross_attention_int8.cu", "cross_attention_int8.py:109",
-         n["k4"] - n["k4_self"], rows["cross"]),
+         n["k4"] - n["k4_self"] + greedy["k4"] - greedy["k4_self"], rows["cross"]),
         ("cross_attention_int8.self", "cross_attention_int8.cu", "cross_attention_int8.py:109",
-         n["k4_self"], rows["self"]),
-        # K4 cross with the beam fold (5 query rows a window), phase 11's launches
+         n["k4_self"] + greedy["k4_self"], rows["self"]),
+        # K4 cross with the beam fold (5 query rows a window): phase 11's
+        # launches at 32 windows, and the beam bench's at 48 with its self
+        # cache of 240 rows
         ("cross_attention_int8.cross_beam", "cross_attention_int8.cu",
          "cross_attention_int8.py:109", beam["k4"] - beam["k4_self"], rows["cross-beam5"]),
+        ("cross_attention_int8.cross_beam.b48", "cross_attention_int8.cu",
+         "cross_attention_int8.py:109", beam_bench["k4"] - beam_bench["k4_self"],
+         rows["cross-beam5-b48"]),
+        ("cross_attention_int8.self_beam.b48", "cross_attention_int8.cu",
+         "cross_attention_int8.py:109", beam_bench["k4_self"], rows["self-beam-b48"]),
         # K5 on the bf16 paths, each row with its launches: phase 5's greedy
-        # batch and whisper_full (phase 17), and phase 12's host beam (both
-        # rows carry the CUDA-graph time)
+        # batch, whisper_full (phase 17) and chunked (phase 19), and phase
+        # 12's host beam (both rows carry the CUDA-graph time)
         ("cached_attention", "decode_attention.cu", "decode_attention.py:109",
-         bf16["k5"] + wf["k5"], rows["k5-b8"]),
+         bf16["k5"] + wf["k5"] + chunked["k5"], rows["k5-b8"]),
         ("cached_attention.beam", "decode_attention.cu", "decode_attention.py:109", host["k5"],
          rows["k5-beam"]),
         ("permute_rows_multi", "beam_gather.cu", "beam_gather.py:159", host["k6"],
          rows["k6-bf16"]),  # the host beam's float cache
         ("cow_copy_rows", "beam_gather.cu", "beam_gather.py:280", beam["k7"], rows["k7-96"]),
-        # The training path's kernels (phase 15), at the encoder's shape: K1's
-        # f32 kernel (K1c's forward) alone, K1c's backward kernel alone, and
-        # K1c forward and backward, with the forward's launches, every one
-        # through flash_sdpa
-        ("flash_attention.f32", "flash_attention.cu", "flash_attention.py:141",
-         train["k1_f32"], train_rows["k1-f32"]),
+        ("cow_copy_rows.b48", "beam_gather.cu", "beam_gather.py:280", beam_bench["k7"],
+         rows["k7-144"]),
+        # The large-v3 training path's kernels (phase 15), at the encoder's
+        # shape: K1's f32 kernel (K1c's forward) alone, K1c's backward kernel
+        # alone, and K1c forward and backward, with the forward's launches,
+        # every one through flash_sdpa
+        ("flash_attention.f32", "flash_attention.cu", "flash_attention.py:141", train["k1_f32"],
+         train_rows["k1-f32"]),
         ("flash_sdpa.backward", "flash_attention_bwd.cu", "flash_attention.py:193",
          train["k1c_bwd"], train_rows["k1c-bwd-1500-float32"]),
         ("flash_sdpa", "flash_attention.cu", "flash_attention.py:183", train["k1_f32"],
          train_rows["k1c-1500-float32"]),
+        # the tone-word fine-tune's (phase 20), at its encoder's shape (16,
+        # 64, 64); its decoder's (16, 31, 31) causal is held in phase 13 too
+        ("flash_sdpa.roundtrip", "flash_attention.cu", "flash_attention.py:183", rt["k1_f32"],
+         train_rows["k1c-64-float32"]),
+        ("flash_sdpa.backward.roundtrip", "flash_attention_bwd.cu", "flash_attention.py:193",
+         rt["k1c_bwd"], train_rows["k1c-bwd-64-float32"]),
         # K1b on no model path: the launches of its entry point, ops.sdpa
         ("flash_attention.qk_int8", "flash_attention.cu", "flash_attention.py:141",
          k1b_entry["k1b"], train_rows["k1b-bfloat16-full"]),

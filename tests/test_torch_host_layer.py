@@ -6,6 +6,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 from whisper_tpu import config as jax_config
 from whisper_tpu.decoding import result as jax_result
@@ -304,3 +305,62 @@ def test_word_timing_helpers_copy_equal(checkpoint):
         assert v.is_timestamp(t) == rv.is_timestamp(t)
         assert v.timestamp_to_seconds(t) == rv.timestamp_to_seconds(t)
         assert v.token_bytes(t) == rv.token_bytes(t)
+
+
+# The entry points' slice: the tone-word corpus, params_to_ggml, the
+# in-memory WAV reader and the timers' report.
+
+from whisper_tpu.model.params import params_to_ggml as jax_params_to_ggml  # noqa: E402
+from whisper_tpu.utils import logging as jax_logging  # noqa: E402
+from whisper_tpu.utils import synth as jax_synth  # noqa: E402
+from whisper_tpu_torch.model.params import params_to_ggml, params_to_torch  # noqa: E402
+from whisper_tpu_torch.utils import synth  # noqa: E402
+
+
+@pytest.mark.parametrize("n_words,repeat", [((1, 3), 1), ((3, 3), 2), ((2, 5), 3)])
+def test_synth_copy_equal(n_words, repeat):
+    """The same audio (bit-equal) and transcript for the same default_rng
+    seed, with and without repeat; the same word token table."""
+    ours, ref = np.random.default_rng(11), np.random.default_rng(11)
+    for _ in range(4):
+        audio, text = synth.make_pair(ours, n_words=n_words, repeat=repeat)
+        want_audio, want_text = jax_synth.make_pair(ref, n_words=n_words, repeat=repeat)
+        assert text == want_text and audio.dtype == want_audio.dtype == np.float32
+        np.testing.assert_array_equal(audio, want_audio)
+    np.testing.assert_array_equal(synth.word_audio(3, np.random.default_rng(1)),
+                                  jax_synth.word_audio(3, np.random.default_rng(1)))
+    assert synth.word_tokens(51864) == jax_synth.word_tokens(51864)
+    assert (synth.SR, synth.WORD_SEC, synth.WORDS) == (jax_synth.SR, jax_synth.WORD_SEC,
+                                                      jax_synth.WORDS)
+
+
+def test_params_to_ggml_equal():
+    """The inverse of params_from_ggml, from numpy arrays and from tensors,
+    equals JAX's on the same tree."""
+    cfg = micro_config()
+    tensors = random_tensors(cfg, seed=8)
+    tree = params_from_ggml(tensors, cfg)
+    want = jax_params_to_ggml(jax_params_from_ggml(tensors, cfg), cfg)
+    for got in (params_to_ggml(tree, cfg), params_to_ggml(params_to_torch(tree, "cpu",
+                                                                          torch.float32), cfg)):
+        assert got.keys() == want.keys() == tensors.keys()
+        for name, arr in want.items():
+            assert got[name].shape == arr.shape, name
+            np.testing.assert_array_equal(got[name], arr)
+            np.testing.assert_array_equal(got[name], tensors[name].astype(np.float32))
+
+
+def test_load_wav_bytes_and_timer_report_equal(tmp_path):
+    files, _ = _wav_files(tmp_path)
+    for name, path in files.items():
+        with open(path, "rb") as f:
+            data = f.read()
+        np.testing.assert_array_equal(wav.load_wav_bytes(data), jax_wav.load_wav_bytes(data),
+                                      err_msg=name)
+    with pytest.raises(errors.AudioError):
+        wav.load_wav_bytes(b"RIFF0000")
+    ours, ref = StageTimers(), jax_logging.StageTimers()
+    for t in (ours, ref):
+        t.totals.update({"mel": 0.012345, "decode": 1.5})
+        t.counts.update({"mel": 2, "decode": 1})
+    assert ours.report() == ref.report()

@@ -19,7 +19,10 @@ names = [m.name for m in pkgutil.walk_packages(whisper_tpu_torch.__path__, "whis
 for name in names:
     importlib.import_module(name)
 import chip_smoke
-assert len(names) >= 35, names
+assert len(names) >= 59, names
+for entry in ("cli", "runtime.native", "utils.benchmark", "pipeline.chunked",
+              "pipeline.streaming", "utils.synth"):
+    assert "whisper_tpu_torch." + entry in names, entry
 print(len(names))
 """
 

@@ -3,9 +3,10 @@
 The port's own copy of what it reads from ``whisper_tpu/config.py`` (that
 module is JAX-free, but the port imports nothing of the JAX package): the
 11-field i32 GGML header as a frozen dataclass, the audio frontend
-constants, the released models' presets and the weight-size estimate the
-loader logs, and the published alignment heads of word timing. The TPU HBM
-budget is not copied: nothing in the port reads it yet.
+constants, the released models' presets, the weight-size estimate the
+loader logs, the published alignment heads of word timing, and the serving
+memory estimate with its guard (``check_serving_hbm``), budgeted from the
+card's own memory.
 """
 
 from __future__ import annotations
@@ -72,6 +73,55 @@ class WhisperConfig:
         if self.n_mels not in (80, 128):
             raise ValueError(f"unsupported n_mels={self.n_mels}")
         return self
+
+    def serving_hbm_estimate(
+        self,
+        batch: int = 1,
+        ctx: Optional[int] = None,
+        dtype_bytes: int = 2,
+        kv_dtype_bytes: int = 2,
+        beam: int = 1,
+        enc_batch: Optional[int] = None,
+        engine: bool = False,
+    ) -> Dict[str, int]:
+        """Device bytes of a serving configuration, term by term: weights,
+        cross memory, self-KV cache, peak encoder activations and
+        transients. ``batch`` counts streams (beam groups): the cross memory
+        is group-shared, so cross rows = batch while KV rows = batch * beam.
+        ``enc_batch`` is the encode batch (defaults to batch). ``engine``
+        adds an admission bucket's cross and KV rows beside the resident
+        pools; beam > 1 adds one full KV copy (the out-of-place fork
+        permute). The JAX package's formula, term for term."""
+        c = min(ctx if ctx is not None else self.n_text_ctx, self.n_text_ctx)
+        t, a = self.n_text_state, self.n_audio_state
+        eb = min(enc_batch if enc_batch is not None else batch, batch)
+
+        def cross_rows(n: int) -> int:
+            b = 2 * self.n_text_layer * n * a * self.n_audio_ctx * kv_dtype_bytes
+            if kv_dtype_bytes == 1:  # int8 adds per-position f32 scales
+                b += (2 * self.n_text_layer * n * self.n_text_head
+                      * self.n_audio_ctx * 4)
+            return b
+
+        def kv_rows(n: int) -> int:
+            b = 2 * self.n_text_layer * n * t * c * kv_dtype_bytes
+            if kv_dtype_bytes == 1:
+                b += 2 * self.n_text_layer * n * self.n_text_head * c * 4
+            return b
+
+        cross = cross_rows(batch)
+        kv = kv_rows(batch * beam)
+        # encoder peak: ~4 live (B, 1500, a) activations + one (B, 1500, 4a)
+        acts = eb * self.n_audio_ctx * a * (4 + 4) * dtype_bytes
+        transient = 0
+        if engine:  # admission bucket rows alongside the resident pools
+            transient += cross_rows(eb) + kv_rows(eb * beam)
+        if beam > 1:  # out-of-place full-pool permute
+            transient += kv_rows(batch * beam)
+        weights = self.hbm_bytes_estimate()
+        total = weights + cross + kv + acts + transient
+        return {"weights": weights, "cross": cross, "kv_cache": kv,
+                "activations": acts, "transient": transient, "total": total}
 
     def hbm_bytes_estimate(self) -> int:
         """Analytic size of the weights as stored (f16 or f32 matrices, f32
@@ -162,3 +212,57 @@ def lookup_alignment_heads(cfg: "WhisperConfig") -> Optional[Tuple[Tuple[int, in
                     return None  # v1/v2 indistinguishable from the header
             return ALIGNMENT_HEADS.get(name)
     return None
+
+
+# ---- the serving memory guard: refuse before allocating ----
+
+# The estimate counts the JAX package's terms; the port's device footprint
+# (the PyTorch allocator's peak reserved memory) sits above it by the
+# allocator's cached blocks and the eager temporaries. The card's readings of
+# peak reserved / estimate, each from a process that held only the guarded
+# model (chip_smoke.py phase 18, the bench in a subprocess of its own, large-v3
+# int8): 1.603 at b64 greedy and 1.307 at b48 beam 5. PEAK_OVER_ESTIMATE is
+# the larger one with 6% headroom, and the guard plans against
+# CARD_MEMORY_FRACTION of the card's total memory (torch.cuda.mem_get_info),
+# so that an admitted configuration's footprint stays within 95% of the card.
+PEAK_OVER_ESTIMATE = 1.7
+CARD_MEMORY_FRACTION = 0.95 / PEAK_OVER_ESTIMATE
+
+
+def check_serving_hbm(
+    cfg: "WhisperConfig",
+    batch: int,
+    *,
+    beam: int = 1,
+    ctx: Optional[int] = None,
+    kv_dtype_bytes: int = 2,
+    enc_batch: Optional[int] = None,
+    engine: bool = False,
+    what: str = "serving config",
+    budget_bytes: Optional[int] = None,
+    device="cuda",
+) -> Dict[str, Optional[int]]:
+    """Refuse a serving configuration whose estimate
+    (:meth:`WhisperConfig.serving_hbm_estimate`) exceeds the budget, with
+    :class:`~whisper_tpu_torch.errors.HbmBudgetError`, before anything is
+    allocated. The budget is ``budget_bytes`` when given, else
+    CARD_MEMORY_FRACTION of the card's total memory when ``device`` is a
+    CUDA device (without a card it raises: no default size); on the
+    CPU without ``budget_bytes`` nothing is checked. Returns the estimate
+    with its ``budget`` (None when unchecked)."""
+    from .errors import HbmBudgetError, WhisperError
+
+    est = cfg.serving_hbm_estimate(
+        batch=batch, ctx=ctx, kv_dtype_bytes=kv_dtype_bytes, beam=beam,
+        enc_batch=enc_batch, engine=engine)
+    if budget_bytes is None and str(device).startswith("cuda"):
+        import torch
+
+        if not torch.cuda.is_available():  # no default size to fall back on
+            raise WhisperError(f"no CUDA card to budget {what} for; pass budget_bytes or "
+                               "run on the CPU")
+        total = torch.cuda.mem_get_info(torch.device(device))[1]
+        budget_bytes = int(total * CARD_MEMORY_FRACTION)
+    if budget_bytes is not None and est["total"] > budget_bytes:
+        raise HbmBudgetError(what, est, budget_bytes, batch=batch, beam=beam)
+    return dict(est, budget=budget_bytes)

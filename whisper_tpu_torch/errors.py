@@ -1,4 +1,4 @@
-"""Typed errors of the GGML loader and of audio ingestion.
+"""Typed errors of the GGML loader, audio ingestion and the memory guard.
 
 The port's own copy of the classes it raises from ``whisper_tpu/errors.py``:
 one exception type per load/parse failure, so callers can match on them.
@@ -81,3 +81,26 @@ class UnsupportedFtypeError(WhisperError):
 
 class AudioError(WhisperError):
     """WAV/PCM ingestion failure."""
+
+
+class HbmBudgetError(WhisperError):
+    """A serving configuration's device-memory estimate exceeds the card's
+    budget (``config.check_serving_hbm``). Raised before any weight, pool or
+    cache is allocated, so an oversized (batch, beam, dtype) combination
+    fails with this message instead of running out of memory mid-step."""
+
+    def __init__(self, what: str, estimate: dict, budget_bytes: int,
+                 batch: int = 0, beam: int = 1):
+        gb = 2**30
+        terms = ", ".join(f"{k} {v / gb:.2f}" for k, v in estimate.items()
+                          if k != "total")
+        super().__init__(
+            f"{what} needs ~{estimate['total'] / gb:.2f} GB of device memory "
+            f"(batch={batch}, beam={beam}; {terms} GB) but only "
+            f"{budget_bytes / gb:.2f} GB is budgeted — reduce batch/beam or "
+            f"quantize the KV pools (int8)")
+        self.what = what
+        self.estimate = estimate
+        self.budget_bytes = budget_bytes
+        self.batch = batch
+        self.beam = beam

@@ -127,6 +127,24 @@ def _read_i32(buf: memoryview, off: int) -> Tuple[int, int]:
     return struct.unpack_from("<i", buf, off)[0], off + 4
 
 
+def _parse_header(buf, path: str) -> WhisperConfig:
+    """The magic and the 11-field hparams header at the start of ``buf``."""
+    if len(buf) < 4:
+        raise TruncatedFileError(f"file truncated at offset 0 ({path!r})")
+    (magic,) = struct.unpack_from("<I", buf, 0)
+    if magic != GGML_MAGIC:
+        raise BadMagicError(path, magic)
+    if 4 + 44 > len(buf):
+        raise TruncatedFileError("file truncated in the hparams header")
+    return WhisperConfig(*struct.unpack_from("<11i", buf, 4)).validate()
+
+
+def read_ggml_config(path: str) -> WhisperConfig:
+    """A checkpoint's config from its header alone (no tensor is read)."""
+    with open(path, "rb") as f:
+        return _parse_header(f.read(48), path)
+
+
 def load_ggml(path: str, verbose: bool = True) -> GGMLCheckpoint:
     """Parse a GGML Whisper checkpoint into numpy arrays (zero-copy views
     into the file's bytes)."""
@@ -136,19 +154,8 @@ def load_ggml(path: str, verbose: bool = True) -> GGMLCheckpoint:
     with open(path, "rb") as f:
         data = f.read()
     buf = memoryview(data)
-
-    if len(buf) < 4:
-        raise TruncatedFileError(f"file truncated at offset 0 ({path!r})")
-    (magic,) = struct.unpack_from("<I", buf, 0)
-    if magic != GGML_MAGIC:
-        raise BadMagicError(path, magic)
-    off = 4
-
-    if off + 44 > len(buf):
-        raise TruncatedFileError("file truncated in the hparams header")
-    vals = struct.unpack_from("<11i", buf, off)
-    off += 44
-    config = WhisperConfig(*vals).validate()
+    config = _parse_header(buf, path)
+    off = 48
     if verbose:
         log.info("model type   = %s", config.model_type)
         for field in dataclasses.fields(WhisperConfig)[:11]:

@@ -2,8 +2,9 @@
 
 The port's own copy of ``whisper_tpu/io/wav.py``: i16 -> f32 by /32768,
 multichannel audio downmixed, other rates resampled (scipy's
-``resample_poly``). Only the pure-Python reader is carried over; the JAX
-package's native C++ reader is not ported yet.
+``resample_poly``). ``load_wav`` reads through the native C++ runtime
+(``runtime/native.py``) and takes scipy's reader only when the runtime is
+unavailable; ``load_wav_bytes`` parses an in-memory WAV.
 """
 
 from __future__ import annotations
@@ -19,20 +20,49 @@ def convert_integer_to_float_audio(samples: np.ndarray) -> np.ndarray:
     return samples.astype(np.float32) / 32768.0
 
 
+def _finish_load(rate: int, audio: np.ndarray, target_rate: int,
+                 resample: bool, what: str) -> np.ndarray:
+    """Shared tail of every WAV ingest path: resample-or-reject to
+    ``target_rate`` (audio already mono f32)."""
+    if rate != target_rate:
+        if not resample:
+            raise AudioError(f"{what} is {rate} Hz, expected {target_rate} Hz")
+        audio = resample_poly(audio, target_rate, rate)
+    return audio
+
+
 def load_wav(path: str, target_rate: int = SAMPLE_RATE, resample: bool = True) -> np.ndarray:
     """Read a WAV file and return mono f32 PCM at ``target_rate``."""
+    from ..runtime import native
+
+    out = native.native_load_wav(path)
+    if out is not None:
+        rate, audio = out
+    else:
+        from scipy.io import wavfile
+
+        try:
+            rate, data = wavfile.read(path)
+        except Exception as e:  # noqa: BLE001
+            raise AudioError(f"cannot read WAV {path!r}: {e}") from e
+        native.count("wav-python")
+        audio = _to_float_mono(data)
+    return _finish_load(rate, audio, target_rate, resample, repr(path))
+
+
+def load_wav_bytes(data: bytes, target_rate: int = SAMPLE_RATE,
+                   resample: bool = True) -> np.ndarray:
+    """In-memory WAV bytes -> mono f32 PCM at ``target_rate`` (no temporary
+    file)."""
+    import io as _io
+
     from scipy.io import wavfile
 
     try:
-        rate, data = wavfile.read(path)
+        rate, raw = wavfile.read(_io.BytesIO(data))
     except Exception as e:  # noqa: BLE001
-        raise AudioError(f"cannot read WAV {path!r}: {e}") from e
-    audio = _to_float_mono(data)
-    if rate != target_rate:
-        if not resample:
-            raise AudioError(f"{path!r} is {rate} Hz, expected {target_rate} Hz")
-        audio = resample_poly(audio, target_rate, rate)
-    return audio
+        raise AudioError(f"cannot parse WAV body: {e}") from e
+    return _finish_load(rate, _to_float_mono(raw), target_rate, resample, "WAV body")
 
 
 def _to_float_mono(data: np.ndarray) -> np.ndarray:

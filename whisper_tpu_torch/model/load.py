@@ -1,7 +1,9 @@
 """Model loading: GGML file -> WhisperModel on one torch device.
 
-Port of ``whisper_tpu/model/load.py`` through the port's pure-Python GGML
-reader (``io.ggml.load_ggml``); the native C++ reader is not wired yet.
+Port of ``whisper_tpu/model/load.py``: the checkpoint is read by the native
+C++ runtime (``runtime/native.py``, mmap'd) or, with ``use_native=False`` or
+when the runtime is unavailable, by the pure-Python reader
+(``io.ggml.load_ggml``); the log line names the reader that ran.
 ``random_model`` builds a model with random weights and no checkpoint.
 """
 
@@ -9,13 +11,14 @@ from __future__ import annotations
 
 import dataclasses
 import time
+from typing import Optional
 
 import numpy as np
 import torch
 
 from ..config import WhisperConfig
 from ..frontend.mel import mel_filter_bank
-from ..io.ggml import load_ggml
+from ..io.ggml import GGMLCheckpoint, load_ggml
 from ..io.vocab import WhisperVocab, make_vocab
 from ..utils.logging import StageTimers, get_logger
 from .decoder import TextDecoder
@@ -53,16 +56,36 @@ class WhisperModel:
                                    decoder=TextDecoder(params, self.config))
 
 
+def _checkpoint_via_native(path: str) -> Optional[GGMLCheckpoint]:
+    from ..runtime.native import native_open_ggml
+
+    out = native_open_ggml(path)
+    if out is None:
+        return None
+    header, filters, tokens, tensors = out
+    config = WhisperConfig(*header).validate()
+    vocab = make_vocab(config.n_vocab, tokens, len(tokens))
+    return GGMLCheckpoint(config=config, filters=filters, vocab=vocab, tensors=tensors)
+
+
 def load_model(path: str, *, device: torch.device | str = "cuda",
                dtype: torch.dtype = torch.float32,
-               gelu_impl: str = "erf") -> WhisperModel:
+               gelu_impl: str = "erf", use_native: bool = True) -> WhisperModel:
     """Load a GGML checkpoint onto ``device`` (the card unless the caller
     asks for the CPU) with weights in ``dtype`` (f32 for parity, bf16 for
-    serving); moments and softmax always run f32."""
+    serving); moments and softmax always run f32. ``use_native`` reads the
+    file with the native runtime when it is available."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"dtype must be float32 or bfloat16, got {dtype}")
+    from ..runtime import native
+
     t0 = time.perf_counter()
-    ckpt = load_ggml(path)
+    ckpt = _checkpoint_via_native(path) if use_native else None
+    reader = "native"
+    if ckpt is None:
+        ckpt = load_ggml(path)
+        reader = "python"
+        native.count("ggml-python")
     config = dataclasses.replace(ckpt.config, gelu_impl=gelu_impl)
     params = params_to_torch(params_from_ggml(ckpt.tensors, config, dtype=np.float32),
                              device, dtype)
@@ -72,8 +95,8 @@ def load_model(path: str, *, device: torch.device | str = "cuda",
                          decoder=TextDecoder(params, config))
     model.timers.totals["load"] = time.perf_counter() - t0
     model.timers.counts["load"] = 1
-    log.info("loaded %s (%s, %s on %s) in %.2fs", path, config.model_type, dtype,
-             filters.device, model.timers.totals["load"])
+    log.info("loaded %s (%s, %s on %s, %s reader) in %.2fs", path, config.model_type, dtype,
+             filters.device, reader, model.timers.totals["load"])
     return model
 
 

@@ -96,6 +96,40 @@ def params_from_ggml(tensors: Dict[str, np.ndarray], config: WhisperConfig,
     return _assemble(lambda name: tensors[name].astype(dtype), np.stack, config)
 
 
+def params_to_ggml(params: Params, config: WhisperConfig) -> Dict[str, np.ndarray]:
+    """Inverse of ``params_from_ggml``: the named GGML tensors (numpy f32 on
+    the host) of a float tree of numpy arrays or tensors, for re-export with
+    ``io.ggml.write_ggml``."""
+    def host(x) -> np.ndarray:
+        if isinstance(x, torch.Tensor):
+            return x.detach().to("cpu", torch.float32).numpy()
+        return np.asarray(x)
+
+    enc, dec = params["encoder"], params["decoder"]
+    out: Dict[str, np.ndarray] = {
+        "encoder.positional_embedding": host(enc["pe"]),
+        "encoder.conv1.weight": host(enc["conv1_w"]),
+        "encoder.conv1.bias": host(enc["conv1_b"]).reshape(-1, 1),
+        "encoder.conv2.weight": host(enc["conv2_w"]),
+        "encoder.conv2.bias": host(enc["conv2_b"]).reshape(-1, 1),
+        "encoder.ln_post.weight": host(enc["ln_post_w"]),
+        "encoder.ln_post.bias": host(enc["ln_post_b"]),
+        "decoder.positional_embedding": host(dec["pe"]),
+        "decoder.token_embedding.weight": host(dec["te"]),
+        "decoder.ln.weight": host(dec["ln_w"]),
+        "decoder.ln.bias": host(dec["ln_b"]),
+    }
+    for prefix, n_layer, block_map, blocks in (
+        ("encoder.blocks", config.n_audio_layer, _ENC_BLOCK, enc["blocks"]),
+        ("decoder.blocks", config.n_text_layer, _DEC_BLOCK, dec["blocks"]),
+    ):
+        for field, suffix in block_map.items():
+            stacked = host(blocks[field])
+            for i in range(n_layer):
+                out[f"{prefix}.{i}.{suffix}"] = stacked[i]
+    return out
+
+
 def _random_kind(name: str) -> str:
     """How a random model fills a tensor: LN weights one, biases zero, the
     rest drawn."""

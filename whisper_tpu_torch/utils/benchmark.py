@@ -1,30 +1,45 @@
-"""The serving step of the throughput benchmark, and its parameter preparation.
+"""The throughput benchmark: audio seconds transcribed per second (RTF).
 
-Port of ``make_serving_step`` and of the parameter preparation in
-``run_benchmark`` (``whisper_tpu/utils/benchmark.py``): one 30 s window ->
-log-mel -> broadcast to the batch -> encoder (W8A8 when its weights are int8)
-with an int8 or bf16 cross memory -> a greedy decode of ``decode_tokens``
-tokens with timestamp rules and an int8 or bf16 self cache (or, with
-``beam_size=k``, the device beam over batch·k cache rows and a group-shared
-cross memory), all on the model's device. The modules hold the weights, so
-the step takes only the audio. The timing loop and the bench.py hook are not
-ported yet.
+Port of ``whisper_tpu/utils/benchmark.py``'s lockstep benchmark on one
+device: ``make_serving_step`` (one 30 s window -> log-mel -> broadcast to
+the batch -> encoder, W8A8 when its weights are int8, with an int8 or bf16
+cross memory -> a greedy decode of ``decode_tokens`` tokens with timestamp
+rules and an int8 or bf16 self cache, or with ``beam_size=k`` the device
+beam over batch·k cache rows and a group-shared cross memory), its
+parameter preparation (``prepare_serving_params``), and ``run_benchmark``'s
+timing loop, guarded by ``config.check_serving_hbm`` before anything is
+allocated.
+
+    python -m whisper_tpu_torch.utils.benchmark [--device cuda]
+
+prints one JSON line with bench.py's keys, configured by bench.py's knobs
+for its default mode (BENCH_MODEL, BENCH_BATCH, BENCH_BEAM, BENCH_KV,
+BENCH_WQ, BENCH_ENC, BENCH_DTYPE, BENCH_SECONDS). The metric name marks the
+backend (``rtf_torch_...``); the engine and speculative modes
+(BENCH_MODE=engine|spec) wait for their modules and exit non-zero.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+import json
+import os
+import subprocess
+import sys
+import time
+from typing import Callable, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..config import N_SAMPLES_PER_CHUNK
+from ..config import N_SAMPLES_PER_CHUNK, PRESETS, WhisperConfig, check_serving_hbm
 from ..decoding.device_beam import beam_decode_device
 from ..decoding.device_loop import build_masks, decode_segment_device
 from ..frontend.mel import frame_count, log_mel_spectrogram, mel_window
+from ..io.ggml import read_ggml_config
 from ..model.decoder import KVCache, init_cache
 from ..model.encoder import encode
-from ..model.load import WhisperModel
+from ..errors import WhisperError
+from ..model.load import WhisperModel, load_model, random_model
 from ..model.params import Params
 from ..model.quant import (fuse_decoder_qkv, init_quant_cache, quantize_decoder_weights,
                            quantize_encoder_weights)
@@ -49,6 +64,13 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def serving_ctx(cfg: WhisperConfig, decode_tokens: int) -> int:
+    """Self-cache positions of the serving step: the initial tokens (SOT,
+    and language and task on a multilingual model), the decoded tokens and 8
+    spare."""
+    return (3 if cfg.is_multilingual else 1) + decode_tokens + 8
+
+
 def make_serving_step(model: WhisperModel, batch: int, decode_tokens: int, kv_dtype: str,
                       beam_size: Optional[int] = None
                       ) -> Callable[[np.ndarray], Tuple[torch.Tensor, torch.Tensor]]:
@@ -70,7 +92,7 @@ def make_serving_step(model: WhisperModel, batch: int, decode_tokens: int, kv_dt
         init += [vocab.language_token("en"), vocab.token_transcribe]
     k = beam_size or 1
     init_tokens = torch.tensor([init] * (batch * k), dtype=torch.long, device=device)
-    seg_ctx = len(init) + decode_tokens + 8
+    seg_ctx = serving_ctx(cfg, decode_tokens)
 
     def step(audio: np.ndarray) -> Tuple[torch.Tensor, torch.Tensor]:
         with torch.inference_mode():
@@ -102,3 +124,195 @@ def make_serving_step(model: WhisperModel, batch: int, decode_tokens: int, kv_dt
         return toks, lengths
 
     return step
+
+
+WINDOW_SEC = 30.0
+_WAITS_FOR = {"engine": "parallel/engine.py (the SlotEngine)",
+              "spec": "parallel/spec_engine.py and decoding/speculative.py"}
+
+
+def card_line(device: torch.device) -> Optional[str]:
+    """The card's name and power limit as nvidia-smi gives them (None on the
+    CPU or when nvidia-smi cannot be run)."""
+    if device.type != "cuda":
+        return None
+    try:
+        out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader", f"--id={device.index or 0}"],
+                             capture_output=True, text=True, timeout=60, check=True)
+    except (OSError, subprocess.SubprocessError):
+        return None
+    return out.stdout.strip()
+
+
+def kernel_launches() -> dict:
+    """Every kernel wrapper's launch count so far: K1 by kernel (bf16, f32,
+    K1b), the K1c backward, K2/K3, K4 (all, and self alone), K5, K6, K7."""
+    from ..kernels import beam_gather, fused_quant
+    from ..kernels.cross_attention_int8 import cross_attention_int8
+    from ..kernels.decode_attention import cached_attention
+    from ..kernels.flash_attention import flash_attention, flash_sdpa
+
+    return {"k1": flash_attention.launches, "k1_f32": flash_attention.f32_launches,
+            "k1b": flash_attention.int8_launches, "k1c_bwd": flash_sdpa.bwd_launches,
+            "act": fused_quant.act_quant.launches, "ln": fused_quant.ln_quant.launches,
+            "gelu": fused_quant.gelu_quant.launches, "k4": cross_attention_int8.launches,
+            "k4_self": cross_attention_int8.masked_launches, "k5": cached_attention.launches,
+            "k6": beam_gather.permute_rows_multi.launches,
+            "k7": beam_gather.cow_copy_rows.launches}
+
+
+def run_benchmark(
+    model_path: Optional[str] = None,
+    model_name: str = "large-v3",
+    seconds: int = 120,
+    batch: int = 8,
+    dtype: str = "bfloat16",
+    decode_tokens: int = 64,
+    kv_dtype: str = "int8",      # quantized cross memory / KV cache
+    weight_dtype: str = "int8",  # quantized decoder weights
+    beam_size: Optional[int] = None,  # the device beam instead of greedy
+    aot_path: Optional[str] = None,
+    enc_dtype: str = "int8",     # W8A8 encoder matmuls
+    device: torch.device | str = "cuda",
+    budget_bytes: Optional[int] = None,
+) -> dict:
+    """Lockstep serving throughput: one warm-up step, then timed steps until
+    ``seconds`` (less the warm-up, at least 5 s) are spent, each ending with
+    the tokens on the host. RTF = steps · batch · 30 s / wall. Runs on the
+    card unless ``device`` is the CPU; the memory guard runs before any
+    allocation (``budget_bytes`` overrides the card's budget; on the CPU
+    without it nothing is checked). Returns bench.py's keys."""
+    if aot_path:
+        raise WhisperError("an ahead-of-time serving artifact needs a torch export of the "
+                           "serving step (the JAX package's utils/aot.py), which is not "
+                           "ported yet")
+    if dtype not in ("bfloat16", "float32"):
+        raise ValueError(f"dtype must be 'bfloat16' or 'float32', got {dtype!r}")
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise WhisperError("run_benchmark runs on a CUDA card and none is available; "
+                           "pass device='cpu' to run on the CPU")
+    cfg = read_ggml_config(model_path) if model_path else PRESETS[model_name]
+    estimate = check_serving_hbm(
+        cfg, batch, beam=beam_size or 1, ctx=serving_ctx(cfg, decode_tokens),
+        kv_dtype_bytes=1 if kv_dtype == "int8" else 2,
+        what=f"run_benchmark(batch={batch}, beam={beam_size}, kv={kv_dtype})",
+        budget_bytes=budget_bytes, device=device)
+
+    tdtype = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    if model_path:
+        model = load_model(model_path, device=device, dtype=tdtype)
+    else:
+        model = random_model(cfg, seed=0, dtype=tdtype, device=device, on_device=True)
+    model = model.with_params(prepare_serving_params(model.params, weight_dtype, enc_dtype))
+    step = make_serving_step(model, batch, decode_tokens, kv_dtype, beam_size)
+    audio = (np.random.default_rng(0).standard_normal(16000 * 30).astype(np.float32) * 0.1)
+
+    def one_batch():
+        toks, lengths = step(audio)
+        return toks.cpu().numpy(), lengths.cpu().numpy()
+
+    t0 = time.perf_counter()
+    one_batch()
+    warmup = time.perf_counter() - t0
+    model.timers.totals.clear()  # the stage walls of the timed steps only
+    model.timers.counts.clear()
+
+    launches0 = kernel_launches()
+    iters = 0
+    t0 = time.perf_counter()
+    deadline = t0 + max(5.0, seconds - warmup)
+    while time.perf_counter() < deadline:
+        one_batch()
+        iters += 1
+    wall = time.perf_counter() - t0
+    launches = {k: v - launches0[k] for k, v in kernel_launches().items()}
+    rtf = iters * batch * WINDOW_SEC / wall if wall > 0 else 0.0
+    on_card = device.type == "cuda"
+    return {
+        "metric": f"rtf_torch_{cfg.model_type}_b{batch}_"
+        + (f"beam{beam_size}x" if beam_size else "greedy")
+        + f"{decode_tokens}"
+        + ("_kvint8" if kv_dtype == "int8" else "")
+        + ("_wint8" if weight_dtype == "int8" else "")
+        + ("_eint8" if enc_dtype == "int8" else ""),
+        "value": rtf,
+        "unit": "audio_sec/sec/chip",
+        "vs_baseline": None,  # no baseline on the card yet
+        "detail": {
+            "model": cfg.model_type,
+            "weights": model_path or f"random (seed 0, {model_name})",
+            "batch": batch,
+            "beam_size": beam_size,
+            "dtype": dtype,
+            "kv_dtype": kv_dtype,
+            "weight_dtype": weight_dtype,
+            "enc_dtype": enc_dtype,
+            "decode_tokens": decode_tokens,
+            "iters": iters,
+            "wall_s": wall,
+            "warmup_s": warmup,
+            "device": str(device),
+            "card": torch.cuda.get_device_name(device) if on_card else None,
+            "nvidia_smi": card_line(device),
+            "torch": torch.__version__,
+            "peak_allocated_bytes": torch.cuda.max_memory_allocated(device) if on_card else None,
+            "peak_reserved_bytes": torch.cuda.max_memory_reserved(device) if on_card else None,
+            "hbm_estimate": estimate,
+            "stages_s": dict(model.timers.totals),
+            "kernel_launches": launches,  # over the timed steps
+        },
+    }
+
+
+def bench_config_from_env(env: Mapping[str, str]) -> dict:
+    """run_benchmark's keyword arguments from bench.py's knobs for its
+    default mode: BENCH_MODEL (large-v3), BENCH_BATCH (64, or 48 with a
+    beam), BENCH_BEAM, BENCH_KV, BENCH_WQ, BENCH_ENC (int8 each),
+    BENCH_DTYPE (bfloat16) and BENCH_SECONDS (120). BENCH_MODE=engine or
+    spec raises WhisperError naming the module it waits for."""
+    mode = env.get("BENCH_MODE")
+    if mode:
+        if mode not in _WAITS_FOR:
+            raise WhisperError(f"unknown BENCH_MODE={mode!r}")
+        raise WhisperError(f"BENCH_MODE={mode} needs {_WAITS_FOR[mode]}, which the port "
+                           "does not have yet")
+    beam = env.get("BENCH_BEAM")
+    return dict(
+        model_name=env.get("BENCH_MODEL", "large-v3"),
+        batch=int(env.get("BENCH_BATCH", "48" if beam else "64")),
+        beam_size=int(beam) if beam else None,
+        seconds=int(env.get("BENCH_SECONDS", "120")),
+        dtype=env.get("BENCH_DTYPE", "bfloat16"),
+        kv_dtype=env.get("BENCH_KV", "int8"),
+        weight_dtype=env.get("BENCH_WQ", "int8"),
+        enc_dtype=env.get("BENCH_ENC", "int8"),
+    )
+
+
+def main(argv=None) -> int:
+    """Print one JSON line: the benchmark's result, or on a refused
+    configuration (WhisperError) a line with value 0 and the error, and
+    exit 1."""
+    import argparse
+
+    parser = argparse.ArgumentParser(prog="python -m whisper_tpu_torch.utils.benchmark")
+    parser.add_argument("--device", default="cuda",
+                        help="torch device to run on (default: the CUDA card)")
+    args = parser.parse_args(argv)
+    try:
+        result = run_benchmark(device=args.device, **bench_config_from_env(os.environ))
+    except WhisperError as e:
+        print(json.dumps({"metric": "rtf_torch_refused", "value": 0.0,
+                          "unit": "audio_sec/sec/chip", "vs_baseline": None,
+                          "detail": {"error": str(e)}}))
+        return 1
+    print(json.dumps(result))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -43,3 +43,12 @@ class StageTimers:
             dt = time.perf_counter() - t0
             self.totals[name] = self.totals.get(name, 0.0) + dt
             self.counts[name] = self.counts.get(name, 0) + 1
+
+    def report(self) -> str:
+        lines = []
+        for name in sorted(self.totals):
+            lines.append(
+                f"  t_{name:<8s} = {self.totals[name] * 1e3:9.2f} ms"
+                f"  ({self.counts[name]} calls)"
+            )
+        return "\n".join(lines)
