@@ -147,13 +147,41 @@ then exits non-zero without the final "ok" line:
    tokens equal the f32 run's. Every shape the fine-tune gives flash_sdpa
    must be one of phase 13's K1C_CASES, and the in-process decode holds K1
    and K5 to their plain versions at every shape it gives them.
-Phases 16, 17 and 19 run after phase 12, while phase 5's model is loaded;
-phase 18 after them, phase 20 last.
+21. engine parity: phase 4's checkpoint through the SlotEngine
+   (parallel/engine.py) on the CPU and on the card: five streams on 2
+   slots under all four schedules, float and int8 (int8 decoder weights
+   and pools), each stream's tokens equal to the device loop's on the
+   engine's model; then transcribe_streams over a 35 s and an 8 s clip
+   gives pipeline.transcribe's segments. On the card the ragged K5 (float)
+   and K4 (int8) must have launched, and the overlapped schedule runs under
+   torch.cuda.set_sync_debug_mode: it must make no synchronizing CUDA call
+   (its harvest pulls wait on CUDA events, which that mode does not flag).
+22. float engine: phase 5's large-v3 bf16 model, transcribe_streams with 16
+   slots (bf16 pools, K5 reading each slot's n_past in device memory) over
+   phase 17's WAV and three cuts of it, windows of up to 64 tokens at t=0,
+   twice: audio seconds per wall second, the engine's stats, launches (K5
+   n_text_layer times a forward); run 1 holds K1 and K5 to their plain
+   versions at every shape the path gives them. K4_CASES and K5_CASES hold
+   both kernels with each row's n_past in device memory at the engines'
+   shapes (rows spread over 0..C-1, f32 and bf16, a K4 split over two ranks
+   with rows at n_past 0, and every row alike, equal to the int call).
+23. engine bench: python -m whisper_tpu_torch.utils.benchmark with
+   BENCH_MODE=engine in a subprocess (large-v3 int8, 64 slots, 128 streams
+   of 24/27/30 s, chunks of 32, 64 tokens, BENCH_SECONDS 20): its JSON line,
+   stats and peaks beside the guard's estimate (within PEAK_OVER_ESTIMATE),
+   and K1, K4 cross, K4 self and the ragged K4 self launched in the timed
+   waves. Every shape it gives the kernels is in K1_CASES and K4_CASES by
+   construction at these defaults: the pool has 65 rows and the prompt
+   bucket 32 tokens, and the bench's stats must show that every admission
+   bucket was a full 16 (staged buckets × 16 = 128 streams).
+Phases 16, 17, 19, 21 and 22 run after phase 12, while phase 5's model is
+loaded; phases 18 and 23 after them, phase 20 last.
 
 The line before the last is the kernels JSON: every kernel with its
-main-path launches (K1 and K5 with phases 17 and 19 added, the int8 step's
-kernels with phase 18's timed steps, the beam bench's K4 and K7 and phase
-20's fine-tune in rows of their own at their shapes, K1c with phase 15's),
+main-path launches (K1 and K5 with phases 17, 19 and 22 added, the int8
+step's kernels with phase 18's timed steps, the beam bench's K4 and K7, the
+engines' K4 and ragged K5 and phase 20's fine-tune in rows of their own at
+their shapes, K1c with phase 15's),
 error against its plain version, kernel, plain and
 library times (K4 cross and self and K5 also the time of one call in a CUDA
 graph, "graph_ms"), and its bound (bytes over 3.35 TB/s or operations over the
@@ -174,6 +202,8 @@ import os
 import subprocess
 import sys
 import time
+import traceback
+import warnings
 import zlib
 from pathlib import Path
 
@@ -184,6 +214,7 @@ import torch.nn.functional as F
 from whisper_tpu_torch.config import (CARD_MEMORY_FRACTION, PEAK_OVER_ESTIMATE, PRESETS,
                                       SAMPLE_RATE, WhisperConfig, check_serving_hbm)
 from whisper_tpu_torch.decoding.device_beam import cow_assign
+from whisper_tpu_torch.decoding.device_loop import decode_segment_device
 from whisper_tpu_torch.decoding.sequence import BeamSearchDecoder
 from whisper_tpu_torch.decoding.task import DecodingOptions, decode_full
 from whisper_tpu_torch.frontend.mel import (frame_count, log_mel_spectrogram, mel_filter_bank,
@@ -214,6 +245,7 @@ from whisper_tpu_torch.model.load import load_model, random_model
 from whisper_tpu_torch.model.params import params_to_ggml
 from whisper_tpu_torch.model.quant import (QuantKV, init_quant_cache, qk_logits, quantize_act,
                                            quantize_decoder_weights, quantize_kv)
+from whisper_tpu_torch.parallel.engine import SCHEDULES, SlotEngine
 from whisper_tpu_torch.parallel.serving import BatchTranscriber
 from whisper_tpu_torch.pipeline.chunked import transcribe_chunked
 from whisper_tpu_torch.pipeline.streaming import StreamingTranscriber
@@ -415,6 +447,41 @@ def causal_keys(n_past, tq: int, c: int) -> tuple:
     if n_past is None:
         return c, tq * c
     return min(c, n_past + tq), sum(min(c, n_past + t + 1) for t in range(tq))
+
+
+def case_n_past(spec, bsz: int, c: int):
+    """A kernel case's n_past: None (cross-attention), an int, "spread" (a
+    (B,) int32 tensor on the card with row b at round(b (C - 1) / (B - 1)):
+    every row at its own position, 0 and C - 1 among them, as the engine's
+    slots) or ("rows", v) (every row at v, as such a tensor)."""
+    if spec == "spread":
+        return torch.linspace(0, c - 1, bsz, device="cuda").round().to(torch.int32)
+    if isinstance(spec, tuple):
+        return torch.full((bsz,), spec[1], dtype=torch.int32, device="cuda")
+    return spec
+
+
+def n_past_text(n_past) -> str:
+    if isinstance(n_past, torch.Tensor):
+        return (f"per row {int(n_past.min())}..{int(n_past.max())} (a ({n_past.numel()},) "
+                f"tensor on the card)")
+    return str(n_past)
+
+
+def row_keys(n_past, bsz: int, tq: int, c: int) -> tuple:
+    """causal_keys summed over the batch rows, each at its own n_past when
+    n_past is a tensor: (key positions read, query-key pairs)."""
+    if isinstance(n_past, torch.Tensor):
+        per = [causal_keys(n, tq, c) for n in n_past.tolist()]
+        return sum(k for k, _ in per), sum(p for _, p in per)
+    keys, pairs = causal_keys(n_past, tq, c)
+    return bsz * keys, bsz * pairs
+
+
+def plan_n_past(n_past, tq: int, c: int):
+    """The n_past a wrapper sizes its launch plan with: a tensor's plan covers
+    the whole cache (the host does not read the rows)."""
+    return max(0, c - tq) if isinstance(n_past, torch.Tensor) else n_past
 
 
 def graph_ms(fn, iters: int) -> float:
@@ -684,6 +751,14 @@ FQ_CASES = [  # (name, mode, rows, d, dtype, elements before x's base)
     ("gelu-erf-b48", "gelu-erf", 48 * 1500, 5120, torch.bfloat16, 0),
 ]
 BEAM_GROUPS, BEAM = 32, 5  # phase 11: 32 windows x 5 beams = 160 decoder rows
+# phase 23's engine bench (bench.py's greedy engine defaults): the slots, the
+# admission bucket and the pool's positions (the 32-token prompt bucket, 64
+# tokens and 8 spare)
+ENGINE_SLOTS, ENGINE_BUCKET, ENGINE_CTX = 64, 16, 32 + 64 + 8
+# phase 22's float engine: slots, and the pool transcribe_streams sizes for
+# 64-token windows (the longest wrapped prompt, 256, + 64 + 8)
+FLOAT_ENGINE_SLOTS, FLOAT_ENGINE_TOKENS = 16, 64
+FLOAT_ENGINE_CTX = 256 + FLOAT_ENGINE_TOKENS + 8
 # phase 18's beam bench: bench.py's batch with a beam (48 windows x 5 beams = 240 rows)
 BENCH_BEAM_GROUPS = bench_config_from_env({"BENCH_BEAM": str(BEAM)})["batch"]
 K4_CASES = [  # (name, batch, heads, tq, keys, n_past, dtype); n_past None: cross
@@ -712,8 +787,23 @@ K4_CASES = [  # (name, batch, heads, tq, keys, n_past, dtype); n_past None: cros
     ("cross-c1", 4, 20, 1, 1, None, torch.bfloat16),
     ("cross-c7", 4, 20, 5, 7, None, torch.float32),
     ("cross-c203", 4, 20, 3, 203, None, torch.bfloat16),
+    # the engine (phase 23's bench: 64 slots and the trash row, admission
+    # buckets of 16 with the 32-token prompt bucket, a pool of 32 + 64 + 8
+    # positions): cross at the step and the prefill, self at the prefill, and
+    # self with each slot at its own n_past read from device memory (rows
+    # spread over 0..C-1), also in f32 (phase 21's tiny model), over 1500
+    # keys (two ranks: rows at n_past 0 leave the second rank no key), and
+    # with every row alike, which must equal the int call
+    ("engine-cross", ENGINE_SLOTS + 1, 20, 1, 1500, None, torch.bfloat16),
+    ("engine-cross-t32", ENGINE_BUCKET, 20, 32, 1500, None, torch.bfloat16),
+    ("engine-self-t32", ENGINE_BUCKET, 20, 32, ENGINE_CTX, 0, torch.bfloat16),
+    ("engine-self", ENGINE_SLOTS + 1, 20, 1, ENGINE_CTX, "spread", torch.bfloat16),
+    ("engine-self-f32", ENGINE_SLOTS + 1, 20, 1, ENGINE_CTX, "spread", torch.float32),
+    ("engine-self-c1500", 8, 20, 1, 1500, "spread", torch.bfloat16),
+    ("engine-self-rows", ENGINE_SLOTS + 1, 20, 1, ENGINE_CTX, ("rows", 40), torch.bfloat16),
 ]
-K4_GRAPHED = ("cross", "self")  # also timed in a CUDA graph: device time without the wrapper
+# also timed in a CUDA graph: device time without the wrapper
+K4_GRAPHED = ("cross", "self", "engine-self")
 
 
 def _fq_calls(mode: str, x, w, b):
@@ -874,8 +964,10 @@ def phase_int8_kernels(card: str) -> dict:
     for case in FQ_CASES:
         _fq_case(card, case_generator(case[0]), rows, *case)
     _k4_f32_sweep(card)
-    for name, bsz, h, tq, c, n_past, dtype in K4_CASES:
-        args = k4_inputs(case_generator(name), bsz, h, tq, c, n_past, dtype)
+    for name, bsz, h, tq, c, spec, dtype in K4_CASES:
+        gen = case_generator(name)
+        n_past = case_n_past(spec, bsz, c)
+        args = k4_inputs(gen, bsz, h, tq, c, n_past, dtype)
         q = args[0]
         out = cross_attention_int8(*args)
         torch.cuda.synchronize()
@@ -884,16 +976,16 @@ def phase_int8_kernels(card: str) -> dict:
         atol, rtol = K4_TOL[dtype]
         ms, plain_ms, t = in_turns(lambda: cross_attention_int8_reference(*args),
                                    lambda: cross_attention_int8(*args), 50)
-        c_eff, pairs = causal_keys(n_past, tq, c)
-        gbps = bsz * h * 2 * 64 * c_eff / (ms * 1e-3) / 1e9
-        # only the keys the mask lets through: codes and scales of K and V
-        b_ms, by = bound_ms(nbytes(q, out) + 2 * bsz * h * c_eff * (64 + 4),
-                            4 * bsz * h * pairs * 64, dtype)
-        plan = cross_attention_int8_plan(c, tq, n_past)
+        keys, pairs = row_keys(n_past, bsz, tq, c)
+        gbps = h * 2 * 64 * keys / (ms * 1e-3) / 1e9
+        # only the keys the mask lets through (each row's own): codes and
+        # scales of K and V
+        b_ms, by = bound_ms(nbytes(q, out) + 2 * h * keys * (64 + 4), 4 * h * pairs * 64, dtype)
+        plan = cross_attention_int8_plan(c, tq, plan_n_past(n_past, tq, c))
         g_ms = graph_ms(lambda: cross_attention_int8(*args), 50) if name in K4_GRAPHED else None
         graphed = f"; in a CUDA graph {g_ms:.4f} ms" if g_ms is not None else ""
         log(f"[int8-kernel] cross_attention_int8 {name} q ({bsz}, {h}, {tq}, 64) "
-            f"{str(dtype)[6:]} over {c} keys, n_past {n_past}, {plan.ranks} rank(s) of "
+            f"{str(dtype)[6:]} over {c} keys, n_past {n_past_text(n_past)}, {plan.ranks} rank(s) of "
             f"{plan.chunk} keys: max_abs_err {err:.3e} (atol {atol:.0e}, rtol {rtol:.1e}"
             f"{f', + the flip term, at most {term:.3e} in an element' if term else ''}); "
             f"kernel {ms:.4f} ms ({t[1]:.4f}, {t[2]:.4f}), plain {plain_ms:.4f} ms ({t[0]:.4f}, "
@@ -902,9 +994,17 @@ def phase_int8_kernels(card: str) -> dict:
         if not ok:
             raise AssertionError(f"cross_attention_int8 {name} disagrees with its plain version: "
                                  f"max_abs_err {err}")
+        if isinstance(spec, tuple):
+            same = torch.equal(out, cross_attention_int8(*args[:5], spec[1]))
+            log(f"[int8-kernel] cross_attention_int8 {name}: every row at n_past {spec[1]} as a "
+                f"tensor {'equals' if same else 'DIFFERS FROM'} the int call, bit for bit")
+            if not same:
+                raise AssertionError(f"cross_attention_int8 {name}: the tensor call differs "
+                                     "from the int call")
         rows[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                       "bound_by": by, "library_ms": None, "graph_ms": g_ms}
-    if fused_quant.act_quant.launches == 0 or cross_attention_int8.masked_launches == 0:
+    if (fused_quant.act_quant.launches == 0 or cross_attention_int8.masked_launches == 0
+            or cross_attention_int8.ragged_launches == 0):
         raise AssertionError("the int8 kernels were not launched")
     torch.cuda.empty_cache()
     return rows
@@ -994,7 +1094,8 @@ def _zero_launches() -> None:
     fused_quant.act_quant.launches = fused_quant.ln_quant.launches = 0
     fused_quant.gelu_quant.launches = 0
     cross_attention_int8.launches = cross_attention_int8.masked_launches = 0
-    cached_attention.launches = 0
+    cross_attention_int8.ragged_launches = 0
+    cached_attention.launches = cached_attention.ragged_launches = 0
     beam_gather.permute_rows_multi.launches = beam_gather.cow_copy_rows.launches = 0
 
 
@@ -1081,6 +1182,16 @@ K5_CASES = [  # (name, batch, heads, tq, ctx, n_past, dtype): layer 2 of a (B, 4
     ("chunk-lang-id", 3, 20, 1, 8, 0, torch.bfloat16),
     ("chunk-b3-prefill", 3, 20, 32, 264, 0, torch.bfloat16),
     ("chunk-b3", 3, 20, 1, 264, 40, torch.bfloat16),
+    # the engine: phase 22's float pool (16 slots and the trash row, 328
+    # positions) and the default streams pool of 448, each slot at its own
+    # n_past read from device memory (rows spread over 0..C-1), bf16 and f32
+    # (an f32 pool of 448 walks K and V in two tiles), and every row alike,
+    # which must equal the int call
+    ("engine", FLOAT_ENGINE_SLOTS + 1, 20, 1, FLOAT_ENGINE_CTX, "spread", torch.bfloat16),
+    ("engine-f32", FLOAT_ENGINE_SLOTS + 1, 20, 1, FLOAT_ENGINE_CTX, "spread", torch.float32),
+    ("engine-448", FLOAT_ENGINE_SLOTS + 1, 20, 1, 448, "spread", torch.bfloat16),
+    ("engine-448-f32", FLOAT_ENGINE_SLOTS + 1, 20, 1, 448, "spread", torch.float32),
+    ("engine-rows", FLOAT_ENGINE_SLOTS + 1, 20, 1, 104, ("rows", 40), torch.bfloat16),
 ]
 
 
@@ -1096,7 +1207,8 @@ def _int8_beam_cache(gen, rows: int, ctx: int):
 
 
 def _k5_cases(card: str, gen, rows: dict) -> None:
-    for name, bsz, h, tq, c, n_past, dtype in K5_CASES:
+    for name, bsz, h, tq, c, spec, dtype in K5_CASES:
+        n_past = case_n_past(spec, bsz, c)
         q = (torch.randn(bsz, h, tq, 64, device="cuda", generator=gen) * 0.5).to(dtype)
         off = 1 if name.endswith("-offset") else 0  # elements before the cache's base
         kc, vc = (torch.randn(off + bsz * 4 * h * 64 * c, device="cuda", generator=gen)
@@ -1116,21 +1228,28 @@ def _k5_cases(card: str, gen, rows: dict) -> None:
         kt, vt = k.transpose(-1, -2), v.transpose(-1, -2)
         lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, kt, vt, attn_mask=mask), 50)
         g_ms = graph_ms(lambda: cached_attention(*args), 50)
-        # only the keys the mask lets through
-        c_eff, pairs = causal_keys(n_past, tq, c)
-        b_ms, by = bound_ms(nbytes(q, out) + 2 * bsz * h * 64 * c_eff * k.element_size(),
-                            4 * bsz * h * pairs * 64, dtype)
-        plan = cached_attention_plan(c, tq, n_past, k.element_size())
+        # only the keys the mask lets through (each row's own)
+        keys, pairs = row_keys(n_past, bsz, tq, c)
+        b_ms, by = bound_ms(nbytes(q, out) + 2 * h * 64 * keys * k.element_size(),
+                            4 * h * pairs * 64, dtype)
+        plan = cached_attention_plan(c, tq, plan_n_past(n_past, tq, c), k.element_size())
         log(f"[decode-kernel] cached_attention {name} q ({bsz}, {h}, {tq}, 64) {str(dtype)[6:]} "
-            f"over {c} positions, n_past {n_past}, base +{off * k.element_size()} bytes, "
+            f"over {c} positions, n_past {n_past_text(n_past)}, base +{off * k.element_size()} bytes, "
             f"{plan.rows} row(s) a block, tiles of {plan.width} keys: max_abs_err {err:.3e} "
             f"(atol {atol:.0e}, rtol {rtol:.1e}); kernel {ms:.4f} ms ({t[1]:.4f}, {t[2]:.4f}), "
             f"plain {plain_ms:.4f} ms ({t[0]:.4f}, {t[3]:.4f}), F.scaled_dot_product_attention "
             f"{lib_ms:.4f} ms; kernel in a CUDA graph {g_ms:.4f} ms; bound {b_ms:.4f} ms "
-            f"({by}, {c_eff} of {c} positions seen); {card}")
+            f"({by}, {keys} of {bsz * c} positions seen); {card}")
         if not ok:
             raise AssertionError(f"cached_attention {name} disagrees with its plain version: "
                                  f"max_abs_err {err}")
+        if isinstance(spec, tuple):
+            same = torch.equal(out, cached_attention(q, k, v, spec[1]))
+            log(f"[decode-kernel] cached_attention {name}: every row at n_past {spec[1]} as a "
+                f"tensor {'equals' if same else 'DIFFERS FROM'} the int call, bit for bit")
+            if not same:
+                raise AssertionError(f"cached_attention {name}: the tensor call differs from "
+                                     "the int call")
         rows[f"k5-{name}"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                               "bound_ms": b_ms, "bound_by": by, "library_ms": lib_ms,
                               "graph_ms": g_ms}
@@ -1430,7 +1549,8 @@ def checking_kernels(checked: dict):
 
     def k5_spy(q, k, v, n_past):
         out = real_k5(q, k, v, n_past)
-        key = ("K5", *q.shape, k.shape[-1], "n_past 0" if n_past == 0 else "n_past > 0")
+        key = ("K5", *q.shape, k.shape[-1], "n_past per row" if isinstance(n_past, torch.Tensor)
+               else "n_past 0" if n_past == 0 else "n_past > 0")
         if key not in checked:
             checked[key] = _within(out, cached_attention_reference(q, k, v, n_past),
                                    K5_TOL[q.dtype])
@@ -2279,6 +2399,257 @@ def phase_roundtrip(card: str) -> dict:
     return n
 
 
+ENGINE_PARITY_SECONDS = (3, 5, 7, 9, 11)  # phase 21: five streams on 2 slots
+ENGINE_BENCH_SECONDS = 20  # phase 23: the engine bench's budget (bench.py's BENCH_SECONDS)
+
+
+def _engine_reference(eng, audio) -> list:
+    """One stream alone through the device loop (decode_segment_device) on
+    the engine's own model, with its cache kind, context, prompt and rule
+    masks: the tokens the engine must give that stream."""
+    model = eng.model
+    with torch.inference_mode():
+        a = torch.from_numpy(np.asarray(audio, np.float32)).to(eng.device)
+        mel = log_mel_spectrogram(a, model.filters, frame_count(len(audio)))
+        enc = encode(model.encoder, mel_window(mel, 0, 2 * model.config.n_audio_ctx)[None],
+                     quantize_kv=eng.quantize)
+        cache = eng._fresh_cache(1, getattr(enc.cross_k, "data", enc.cross_k).dtype)
+        toks, lengths, _, _ = decode_segment_device(
+            model.decoder, eng._padded_init, eng.init_len, eng.sot_index, cache, enc.cross_k,
+            enc.cross_v, eng.sup_mask, eng.blank_mask, sample_len=eng.max_new,
+            use_timestamps=not eng.options.without_timestamps,
+            max_initial_index=eng.max_initial_index)
+    return toks[0, : int(lengths[0])].tolist()
+
+
+def _same_segments(name: str, want: dict, got: dict) -> None:
+    """Text, language, duration and every segment's tokens, seek, t0 and t1
+    identical."""
+    if (got["text"], got["language"], got["duration"]) != (
+            want["text"], want["language"], want["duration"]) or len(got["segments"]) != len(
+            want["segments"]):
+        raise AssertionError(f"{name}: text, language, duration or segment count differ")
+    for i, (w, g) in enumerate(zip(want["segments"], got["segments"])):
+        if any(w[k] != g[k] for k in ("seek", "t0", "t1", "tokens")):
+            raise AssertionError(f"{name}: segment {i} differs: {w} vs {g}")
+
+
+@contextlib.contextmanager
+def host_waits(on: bool):
+    """Under ``on``, torch.cuda.set_sync_debug_mode("warn") for the block:
+    yields a list that fills, on exit, with the file:line of every
+    synchronizing CUDA call the block made (a blocking copy, .item(), a
+    stream synchronize; not a CUDA event's synchronize). PyTorch calls the
+    mode a prototype that does not see every synchronizing operation."""
+    found: list = []
+    if not on:
+        yield found
+        return
+    seen = set()
+
+    def where(filename, lineno) -> str:
+        return f"{Path(filename).parent.name}/{Path(filename).name}:{lineno}"
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        # set_sync_debug_mode's own notice ("a prototype feature") is not one
+        if "called a synchronizing CUDA operation" in str(message):
+            ours = [f for f in traceback.extract_stack()[:-1]
+                    if f.filename.startswith(str(ROOT)) and f.filename != filename]
+            at = where(filename, lineno)
+            if ours:
+                at += f" under {where(ours[-1].filename, ours[-1].lineno)}"
+            seen.add(at)
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield found
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    found.extend(sorted(seen))
+
+
+def phase_engine_parity(card: str) -> None:
+    """The SlotEngine on phase 4's tiny f32 checkpoint, on the CPU and on the
+    card: five streams of different lengths on 2 slots (slots reused, a
+    partial bucket) under all four schedules, float and int8 (int8 decoder
+    weights and int8 pools: K4 at both sites), each stream's tokens the
+    device loop's on that device; then transcribe_streams over a 35 s and an
+    8 s clip gives pipeline.transcribe's segments."""
+    cfg, path = tiny_checkpoint()
+    audios = [synthetic_audio(SAMPLE_RATE * sec, seed=40 + sec) for sec in ENGINE_PARITY_SECONDS]
+    opts = DecodingOptions(sample_len=24)
+    tokens = {}
+    for dev in ("cpu", "cuda"):
+        base = load_model(str(path), device=dev, dtype=torch.float32)
+        for quantize in (False, True):
+            model = (base.with_params(quantize_decoder_weights(base.params)) if quantize
+                     else base)
+            mode = "int8" if quantize else "float"
+            ref = None
+            _zero_launches()
+            for sched in SCHEDULES:
+                eng = SlotEngine(model, n_slots=2, options=opts, chunk_steps=4,
+                                 quantize=quantize, schedule=sched)
+                watch = dev == "cuda" and sched == "overlapped"
+                t0 = time.perf_counter()
+                with host_waits(watch) as waits:
+                    got = [r.tokens for r in eng.transcribe_many(audios)]
+                wall = time.perf_counter() - t0
+                if watch:
+                    log(f"[engine-parity] {dev} {mode} {sched}: {len(waits)} synchronizing "
+                        f"CUDA calls besides the harvest pulls{': ' if waits else ''}"
+                        f"{', '.join(waits)}")
+                    if waits:
+                        raise AssertionError(f"the overlapped engine waited on the card outside "
+                                             f"its harvest pulls at {waits}")
+                if ref is None:
+                    ref = [_engine_reference(eng, a) for a in audios]
+                log(f"[engine-parity] {dev} {mode} {sched}: {len(audios)} streams on 2 slots, "
+                    f"{sum(map(len, got))} tokens in {wall * 1e3:.1f} ms, stats "
+                    f"{ {k: round(v, 4) if isinstance(v, float) else v for k, v in eng.stats.items()} }"
+                    f": {'equal to' if got == ref else 'NOT EQUAL TO'} the device loop's tokens")
+                if got != ref:
+                    i = next(i for i, (g, r) in enumerate(zip(got, ref)) if g != r)
+                    raise AssertionError(f"engine {dev} {mode} {sched}: stream {i} parts from "
+                                         f"the device loop at token "
+                                         f"{_first_divergence(got[i], ref[i])}")
+            n = _read_launches()
+            ragged = n["k4_ragged"] if quantize else n["k5_ragged"]
+            if dev == "cuda" and ragged == 0:
+                raise AssertionError(f"the {mode} engine on the card launched no ragged kernel: "
+                                     f"{n}")
+            tokens[(dev, mode)] = ref
+        topts = TranscribeOptions(temperature=0.0, condition_on_previous_text=True)
+        longs = [synthetic_audio(SAMPLE_RATE * 35, seed=1), synthetic_audio(SAMPLE_RATE * 8, seed=3)]
+        eng = SlotEngine(base, n_slots=2, chunk_steps=8)
+        got = eng.transcribe_streams(longs, topts)
+        for i, (g, a) in enumerate(zip(got, longs)):
+            _same_segments(f"engine streams {dev} stream {i}", transcribe(base, a, topts), g)
+        log(f"[engine-parity] {dev} transcribe_streams: 35 s and 8 s clips, {eng.stats['windows']} "
+            f"windows, {sum(len(g['segments']) for g in got)} segments, each the offline "
+            f"transcribe's (tokens, seek, t0, t1); {card}")
+    for mode in ("float", "int8"):
+        same = sum(c == g for c, g in zip(tokens[("cpu", mode)], tokens[("cuda", mode)]))
+        log(f"[engine-parity] {mode}: {same} of {len(audios)} streams token-identical on the CPU "
+            f"and the card")
+
+
+def phase_engine_float(card: str, model) -> dict:
+    """The float engine on phase 5's large-v3 bf16 model: transcribe_streams
+    with FLOAT_ENGINE_SLOTS slots (bf16 pools; K5 with each slot's n_past in
+    device memory) over phase 17's WAV and three cuts of it, language ID on
+    each, windows of up to FLOAT_ENGINE_TOKENS tokens at t=0; twice, run 1
+    holding K1 and K5 to their plain versions at every shape the path gives
+    them. Returns run 2's launches."""
+    cfg = model.config
+    _, wav = _wav_clip(WF_SECONDS, seed=64)
+    sr = SAMPLE_RATE
+    streams = [wav, wav[5 * sr:], wav[: 40 * sr], wav[20 * sr:]]
+    seconds = sum(len(a) for a in streams) / sr
+    topts = TranscribeOptions(temperature=0.0)
+    real_embed, forwards, checked = decoder_module._embed, [0], {}
+
+    def embed_spy(*args):
+        forwards[0] += 1
+        return real_embed(*args)
+
+    for run in (1, 2):
+        eng = SlotEngine(model, n_slots=FLOAT_ENGINE_SLOTS, chunk_steps=32,
+                         max_new_tokens=FLOAT_ENGINE_TOKENS)
+        torch.cuda.reset_peak_memory_stats()
+        forwards[0] = 0
+        _zero_launches()
+        decoder_module._embed = embed_spy
+        try:
+            with checking_kernels(checked) if run == 1 else contextlib.nullcontext():
+                t0 = time.perf_counter()
+                res = eng.transcribe_streams(streams, topts)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        finally:
+            decoder_module._embed = real_embed
+        n = _read_launches()
+        st = eng.stats
+        log(f"[engine-float] run {run}: large-v3 bf16, {len(streams)} streams ({seconds:.1f} s of "
+            f"audio), {FLOAT_ENGINE_SLOTS} slots, pool of {eng.pool_ctx} positions, windows of up "
+            f"to {FLOAT_ENGINE_TOKENS} tokens at t=0: {wall * 1e3:.1f} ms, {seconds / wall:.3f} s "
+            f"of audio per wall second; {st['windows']} windows, {st['rounds']} rounds, admit "
+            f"{st['admit_s'] * 1e3:.1f} ms, chunks {st['chunk_s'] * 1e3:.1f} ms, pulls "
+            f"{st['pull_s'] * 1e3:.1f} ms; {sum(len(r['segments']) for r in res)} segments, "
+            f"languages {[r['language'] for r in res]}; {forwards[0]} decoder forwards; peak "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches {n}; {card}")
+        if run == 1:
+            check_path_shapes("engine-float", "the float engine's path", checked)
+        if n["k1"] == 0 or n["k5_ragged"] == 0 or n["k5"] != cfg.n_text_layer * forwards[0]:
+            raise AssertionError(f"the float engine's launches {n} over {forwards[0]} forwards: "
+                                 f"K1 and the ragged K5 must run, K5 {cfg.n_text_layer} a forward")
+        if st["windows"] < 2 * len(streams) or [r["duration"] for r in res] != [
+                len(a) / sr for a in streams]:
+            raise AssertionError(f"bad streams: {st['windows']} windows, {res}")
+        for r in res:
+            if r["language"] not in model.vocab.languages:
+                raise AssertionError(f"bad language {r['language']}")
+            for seg in r["segments"]:
+                if not (all(0 <= t < cfg.n_vocab for t in seg["tokens"])
+                        and math.isfinite(seg["avg_logprob"])
+                        and 0.0 <= seg["t0"] <= seg["t1"] <= r["duration"] + 30):
+                    raise AssertionError(f"bad segment {seg}")
+    del eng
+    torch.cuda.empty_cache()
+    return n
+
+
+def phase_engine_bench(card: str) -> dict:
+    """python -m whisper_tpu_torch.utils.benchmark with BENCH_MODE=engine in
+    a subprocess: large-v3 int8 at bench.py's greedy engine defaults (64
+    slots, 128 streams of 24/27/30 s, chunks of 32, 64 tokens). Returns its
+    launches over the timed waves."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+    env.update(BENCH_MODE="engine", BENCH_SECONDS=str(ENGINE_BENCH_SECONDS))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "whisper_tpu_torch.utils.benchmark"], cwd=ROOT,
+                          env=env, capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    out = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or len(out) != 1:
+        raise AssertionError(f"engine bench: exit {proc.returncode}, stdout {out}, stderr "
+                             f"{proc.stderr[-3000:]}")
+    print(out[0], flush=True)
+    line = json.loads(out[0])
+    d = line["detail"]
+    n, est = d["kernel_launches"], d["hbm_estimate"]
+    alloc, reserved = d["peak_allocated_bytes"], d["peak_reserved_bytes"]
+    log(f"[engine-bench] {line['metric']} = {line['value']:.3f} {line['unit']} ({d['waves']} "
+        f"waves of {d['n_streams']} streams in {d['wall_s']:.3f} s after a {d['warmup_s']:.3f} s "
+        f"warm-up; {d['tokens_last_wave']} tokens in the last wave; its stats "
+        f"{ {k: round(v, 4) if isinstance(v, float) else v for k, v in d['stats'].items()} }; "
+        f"{wall:.1f} s for the process); memory guard: estimate {est['total'] / 1e9:.3f} GB "
+        f"(budget {est['budget'] / 1e9:.3f} GB), peak allocated {alloc / 1e9:.3f} GB, reserved "
+        f"{reserved / 1e9:.3f} GB (reserved / estimate {reserved / est['total']:.3f}); launches "
+        f"over the timed waves {n}; {d['nvidia_smi']}")
+    want = f"rtf_torch_large-v3_engine_s{ENGINE_SLOTS}_q{2 * ENGINE_SLOTS}_int8"
+    if not (line["metric"] == want and line["value"] > 0 and line["vs_baseline"] is None
+            and d["waves"] >= 1 and d["n_results"] == 2 * ENGINE_SLOTS and d["nvidia_smi"]
+            and d["device"].startswith("cuda") and d["torch"] == torch.__version__):
+        raise AssertionError(f"engine bench: bad line {line}")
+    if not (n["k1"] > 0 and n["k4"] > n["k4_self"] > n["k4_ragged"] > 0):
+        raise AssertionError(f"engine bench: K1, K4 cross, K4 self at the prefill and the "
+                             f"ragged K4 self must each run in the timed waves: {n}")
+    st = d["stats"]
+    if st["staged_buckets"] * ENGINE_BUCKET != 2 * ENGINE_SLOTS:
+        raise AssertionError(f"engine bench: {st['staged_buckets']} admission buckets for "
+                             f"{2 * ENGINE_SLOTS} streams, not all of {ENGINE_BUCKET}: shapes "
+                             f"outside K1_CASES and K4_CASES")
+    if reserved > PEAK_OVER_ESTIMATE * est["total"]:
+        raise AssertionError(f"engine bench: peak reserved {reserved} bytes, more than "
+                             f"PEAK_OVER_ESTIMATE ({PEAK_OVER_ESTIMATE}) times the guard's "
+                             f"estimate {est['total']}")
+    return n
+
+
 def main() -> None:
     card = phase_device()
     phase_build()
@@ -2297,10 +2668,13 @@ def main() -> None:
     phase_whisper_full_parity(card)
     wf = phase_whisper_full(card, model)
     chunked = phase_chunked_streaming_cli(card, model)
+    phase_engine_parity(card)
+    fe = phase_engine_float(card, model)
     del model, served
     torch.cuda.empty_cache()
     bench = phase_bench(card)
     greedy, beam_bench = bench["greedy-b64"], bench["beam5-b48"]
+    eb = phase_engine_bench(card)
     train_rows, k1b_entry = phase_train_kernels(card)
     phase_train_parity(card)
     train = phase_train(card)
@@ -2311,8 +2685,8 @@ def main() -> None:
         # phase 17, chunked's phase 19 and both bench runs of phase 18), with
         # the b8 row; the b64 row beside it with phase 8's launches
         ("flash_attention", "flash_attention.cu", "flash_attention.py:141",
-         bf16["k1"] + n["k1"] + wf["k1"] + chunked["k1"] + greedy["k1"] + beam_bench["k1"],
-         k1["b8"]),
+         bf16["k1"] + n["k1"] + wf["k1"] + chunked["k1"] + greedy["k1"] + beam_bench["k1"]
+         + fe["k1"] + eb["k1"], k1["b8"]),
         ("flash_attention.b64", "flash_attention.cu", "flash_attention.py:141", n["k1"],
          k1["b64"]),
         # the int8 step's kernels: phase 8 and both bench runs (the greedy
@@ -2337,11 +2711,26 @@ def main() -> None:
          rows["cross-beam5-b48"]),
         ("cross_attention_int8.self_beam.b48", "cross_attention_int8.cu",
          "cross_attention_int8.py:109", beam_bench["k4_self"], rows["self-beam-b48"]),
+        # the int8 engine bench (phase 23): cross at 65 rows (its prefill's
+        # cross at (16, 20, 32) in the same count), the prefill's self over
+        # the pool at n_past 0, and self with each slot's n_past read from
+        # device memory
+        ("cross_attention_int8.cross.engine", "cross_attention_int8.cu",
+         "cross_attention_int8.py:109", eb["k4"] - eb["k4_self"], rows["engine-cross"]),
+        ("cross_attention_int8.self_prefill.engine", "cross_attention_int8.cu",
+         "cross_attention_int8.py:109", eb["k4_self"] - eb["k4_ragged"],
+         rows["engine-self-t32"]),
+        ("cross_attention_int8.self_ragged", "cross_attention_int8.cu",
+         "cross_attention_int8.py:109", eb["k4_ragged"], rows["engine-self"]),
         # K5 on the bf16 paths, each row with its launches: phase 5's greedy
         # batch, whisper_full (phase 17) and chunked (phase 19), and phase
         # 12's host beam (both rows carry the CUDA-graph time)
         ("cached_attention", "decode_attention.cu", "decode_attention.py:109",
-         bf16["k5"] + wf["k5"] + chunked["k5"], rows["k5-b8"]),
+         bf16["k5"] + wf["k5"] + chunked["k5"] + fe["k5"] - fe["k5_ragged"], rows["k5-b8"]),
+        # the float engine's step (phase 22): each slot's n_past read from
+        # device memory
+        ("cached_attention.ragged", "decode_attention.cu", "decode_attention.py:109",
+         fe["k5_ragged"], rows["k5-engine"]),
         ("cached_attention.beam", "decode_attention.cu", "decode_attention.py:109", host["k5"],
          rows["k5-beam"]),
         ("permute_rows_multi", "beam_gather.cu", "beam_gather.py:159", host["k6"],

@@ -153,9 +153,15 @@ def test_env_knobs_give_bench_py_defaults(env, want):
 
 
 def test_bench_mode_engine_and_spec_fail_with_their_module():
+    """The modes the port does not have yet exit non-zero naming their
+    module and ROADMAP item: spec (item 14), and the engine with a beam
+    (item 13) or a draft (item 14); the greedy engine itself runs
+    (tests/test_torch_engine.py)."""
     with pytest.raises(WhisperError, match="parallel/spec_engine.py"):
         benchmark.bench_config_from_env({"BENCH_MODE": "spec"})
-    env = dict(os.environ, BENCH_MODE="engine")
+    with pytest.raises(WhisperError, match="item 14"):
+        benchmark.engine_config_from_env({"BENCH_DRAFT": "d.npz"})
+    env = dict(os.environ, BENCH_MODE="engine", BENCH_BEAM="5")
     proc = subprocess.run([sys.executable, "-m", "whisper_tpu_torch.utils.benchmark",
                            "--device", "cpu"], cwd=ROOT, env=env, capture_output=True,
                           text=True, timeout=300)
@@ -163,4 +169,5 @@ def test_bench_mode_engine_and_spec_fail_with_their_module():
     lines = proc.stdout.strip().splitlines()
     assert len(lines) == 1
     line = json.loads(lines[0])
-    assert line["value"] == 0.0 and "parallel/engine.py" in line["detail"]["error"]
+    assert line["value"] == 0.0 and "parallel/beam_engine.py" in line["detail"]["error"]
+    assert "item 13" in line["detail"]["error"]

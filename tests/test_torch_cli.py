@@ -9,6 +9,7 @@ checkpoint (f32) and the same WAV files.
 - info: the same lines; convert (f16 and f32): a byte-identical file;
 - detect-language: the same language; eval: the same WER dict (all but the
   wall-clock rtf); stream: the same printed transcript;
+- batch (the SlotEngine) prints the engine's transcripts;
 - each subcommand or flag that waits for an unported module exits 2 naming it.
 
 The temperature ladder's sampling rungs cannot match ``jax.random``:
@@ -164,12 +165,15 @@ def test_stream_matches_jax(files, first_rung_only):
 
 
 @pytest.mark.parametrize("argv,module", [
-    (["batch", "{model}", "{wav}"], "parallel/engine.py"),
+    (["batch", "{model}", "{wav}", "--beam", "2"], "parallel/beam_engine.py (ROADMAP item 13)"),
     (["serve", "{model}"], "parallel/server.py"),
     (["export", "{model}", "{out}"], "utils/aot.py"),
     (["transcribe", "{model}", "{wav}", "--draft", "{model}"], "decoding/speculative.py"),
     (["transcribe", "{model}", "{wav}", "--tp", "2"], "parallel/mesh.py"),
-], ids=["batch", "serve", "export", "draft", "tp"])
+    (["batch", "{model}", "{wav}", "--draft", "{model}"],
+     "parallel/spec_engine.py (ROADMAP item 14)"),
+    (["batch", "{model}", "{wav}", "--tp", "2"], "ROADMAP item 16"),
+], ids=["batch", "serve", "export", "draft", "tp", "batch-draft", "batch-tp"])
 def test_unported_subcommands_exit_with_their_module(files, capsys, argv, module):
     d, model, wavs = files
     argv = [a.format(model=model, wav=wavs[0], out=str(d / "x.aot")) for a in argv]

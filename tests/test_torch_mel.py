@@ -48,3 +48,25 @@ def test_mel_window_and_helpers_match_jax():
     np.testing.assert_array_equal(torch_mel.hann_window_np(), jax_mel.hann_window_np())
     for n in (0, 159, 160, 480_000):
         assert torch_mel.frame_count(n) == jax_mel.frame_count(n)
+
+
+@pytest.mark.parametrize("center,fold", [(True, False), (False, True)])
+def test_batched_rows_are_each_their_own_clip(center, fold):
+    """(G, n) audio in one pass: each row gets its own reflect padding and
+    max normalisation (rows at different gains), as JAX's log_mel of that
+    row alone, within the same 2e-4, and the port's 1-D call on the row."""
+    rows = np.stack([synthetic_audio(16000 * 2, seed=s) * g
+                     for s, g in ((1, 1.0), (2, 0.01), (3, 0.3))])
+    filters = jax_mel.mel_filter_bank(80, 400)
+    n = jax_mel.frame_count(rows.shape[1], center)
+    ours = torch_mel.log_mel_spectrogram(torch.from_numpy(rows), torch.from_numpy(filters), n,
+                                         center=center, fold=fold).numpy()
+    assert ours.shape == (3, 80, n)
+    for row, got in zip(rows, ours):
+        ref = np.asarray(jax_mel.log_mel_spectrogram(jnp.asarray(row), jnp.asarray(filters), n,
+                                                     center=center, fold=fold))
+        np.testing.assert_allclose(got, ref, atol=2e-4)
+        one = torch_mel.log_mel_spectrogram(torch.from_numpy(row), torch.from_numpy(filters), n,
+                                            center=center, fold=fold).numpy()
+        # the same f32 products over more rows: equal up to the sum order
+        np.testing.assert_allclose(got, one, atol=1e-5)

@@ -3,6 +3,10 @@ g++ into build/native/) against the pure-Python readers, as
 tests/test_native.py holds the JAX package's, and its WAV and GGML reads
 equal to the JAX package's runtime on the same files."""
 
+import ctypes
+import subprocess
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -117,7 +121,25 @@ def test_native_audio_loader_missing_file(tmp_path):
     loader.close()
 
 
-def test_reads_equal_the_jax_runtime(tmp_path, ggml_path):
+@pytest.fixture
+def jax_runtime(tmp_path, monkeypatch):
+    """The JAX package's runtime built from its own source with g++ into
+    ``tmp_path`` and loaded for this test alone. Its lazy in-tree ``make``
+    writes one shared library in place: several test workers importing
+    tests/test_native.py at once can each find it missing or half written,
+    and such a worker keeps None for its lifetime."""
+    src = Path(jax_native.__file__).parent / "native" / "whisper_rt.cc"
+    lib_path = tmp_path / "libwhisper_rt.so"
+    subprocess.run(["g++", "-O2", "-fPIC", "-std=c++17", "-pthread", "-shared", "-o",
+                    str(lib_path), str(src)], check=True, capture_output=True, timeout=300)
+    lib = ctypes.CDLL(str(lib_path))
+    jax_native._configure(lib)
+    monkeypatch.setattr(jax_native, "_LIB", lib)
+    monkeypatch.setattr(jax_native, "_LIB_TRIED", True)
+    return jax_native
+
+
+def test_reads_equal_the_jax_runtime(tmp_path, ggml_path, jax_runtime):
     """The same WAV (16-bit stereo at 8 kHz, resampled by load_wav) and the
     same GGML file through both packages' runtimes: bit-equal."""
     assert jax_native.available()

@@ -8,9 +8,9 @@ Port of ``whisper_tpu/cli.py`` with the same subcommands and flags:
 
 Every subcommand that computes takes ``--device`` (default ``cuda``: the
 card; ``cpu`` runs the kernels' plain versions), in place of the JAX
-package's platform handling. ``batch``, ``serve`` and ``export``, and
-``transcribe --draft``/``--tp``, stay in the parser and exit with an error
-naming the module they wait for. A ``WhisperError`` prints ``error: ...``
+package's platform handling. ``serve`` and ``export``, ``transcribe
+--draft``/``--tp`` and ``batch --beam``/``--draft``/``--tp`` stay in the
+parser and exit with an error naming the module they wait for. A ``WhisperError`` prints ``error: ...``
 and exits 2.
 """
 
@@ -264,8 +264,71 @@ def cmd_eval(args) -> int:
 
 
 def cmd_batch(args) -> int:
-    raise _unported("batch (continuous batching over many WAVs)",
-                    "parallel/engine.py (the SlotEngine)")
+    """Continuous-batching transcription of many WAVs: the native threaded
+    loader decodes the files while the SlotEngine refills finished slots
+    from the queue between decode chunks."""
+    if args.beam:
+        raise _unported("batch --beam (continuous-batching beam groups)",
+                        "parallel/beam_engine.py (ROADMAP item 13)")
+    if args.draft:
+        raise _unported("batch --draft (speculative continuous batching)",
+                        "parallel/spec_engine.py (ROADMAP item 14)")
+    if args.tp and args.tp > 1:
+        raise _unported("batch --tp", "tensor parallelism, parallel/{mesh,sharding}.py "
+                        "(ROADMAP item 16)")
+    import torch
+
+    from .decoding.task import DecodingOptions
+    from .io.wav import resample_poly
+    from .model.load import load_model
+    from .model.quant import quantize_decoder_weights, quantize_encoder_weights
+    from .parallel.engine import SlotEngine
+    from .runtime.native import NativeAudioLoader
+
+    model = load_model(args.model, device=_device(args), dtype=torch.bfloat16)
+    params = model.params
+    if args.quantize:
+        params = quantize_decoder_weights(params)
+    if args.enc_int8:
+        params = quantize_encoder_weights(params)
+    if params is not model.params:
+        model = model.with_params(params)
+    loader = NativeAudioLoader(args.audio, n_threads=args.io_threads)
+    audios = []
+    for _, rate, audio in loader:
+        if rate != 16000:
+            audio = resample_poly(audio, 16000, rate)
+        audios.append(audio)
+    loader.close()
+    total = sum(len(a) for a in audios) / 16000.0
+    if args.long_form:
+        # whisper_full through the engine: window continuation, prompt
+        # carry, no-speech gate and fallback escalation per stream
+        from .pipeline.transcribe import TranscribeOptions
+
+        engine = SlotEngine(model, n_slots=args.slots,
+                            options=DecodingOptions(language=args.language),
+                            quantize=args.quantize, audio_ctx=args.audio_ctx)
+        t0 = time.perf_counter()
+        results = engine.transcribe_streams(
+            audios, TranscribeOptions(language=args.language,
+                                      word_timestamps=args.word_timestamps))
+        wall = time.perf_counter() - t0
+        for path, res in zip(args.audio, results):
+            print(f"== {path}: {res['text']}")
+    else:
+        engine = SlotEngine(model, n_slots=args.slots,
+                            options=DecodingOptions(language=args.language,
+                                                    without_timestamps=True),
+                            quantize=args.quantize, audio_ctx=args.audio_ctx)
+        t0 = time.perf_counter()
+        results = engine.transcribe_many(audios)
+        wall = time.perf_counter() - t0
+        for path, res in zip(args.audio, results):
+            print(f"== {path}: {res.text}")
+    print(f"{total:.1f}s audio in {wall:.2f}s "
+          f"({total / max(wall, 1e-9):.1f}x realtime, {args.slots} slots)")
+    return 0
 
 
 def cmd_serve(args) -> int:
@@ -379,8 +442,7 @@ def main(argv=None) -> int:
     _add_device_arg(p)
     p.set_defaults(fn=cmd_eval)
 
-    p = sub.add_parser("batch", help="continuous-batching engine over many WAVs "
-                                     "(not ported yet)")
+    p = sub.add_parser("batch", help="continuous-batching engine over many WAVs")
     p.add_argument("model")
     p.add_argument("audio", nargs="+")
     p.add_argument("--slots", type=int, default=8)
@@ -401,6 +463,7 @@ def main(argv=None) -> int:
                    help="speculative continuous batching with a distilled draft")
     p.add_argument("--gamma", type=int, default=4,
                    help="speculative verify width (with --draft)")
+    _add_device_arg(p)
     p.set_defaults(fn=cmd_batch)
 
     p = sub.add_parser("detect-language",

@@ -59,7 +59,11 @@
 // two more PRMT take the bf16 halves for the tensor cores).
 // Keys past the last row's causal limit are neither copied nor computed; a
 // masked logit contributes exp(-1e30 - max) = 0, which leaves every sum as it
-// was. The launch has no host sync and allocates nothing, so it can be
+// was. The serving engine's slots each carry their own position: a ragged
+// self call reads row b's n_past from device memory, its plan is sized for
+// the whole cache, and a rank whose keys lie wholly past its row's limit
+// copies nothing and pushes a max of -1e30 and a sum of 0 (rank 0 always
+// holds key 0, so the global max is finite and no sum is 0). The launch has no host sync and allocates nothing, so it can be
 // captured in a CUDA graph.
 //
 // Plain C interface, loaded with ctypes by whisper_tpu_torch/kernels/build.py.
@@ -322,8 +326,8 @@ __global__ void __launch_bounds__(THREADS)
 attention_int8_kernel(const T* __restrict__ q, const int8_t* __restrict__ k8,
                       const float* __restrict__ ks, const int8_t* __restrict__ v8,
                       const float* __restrict__ vs, T* __restrict__ out, int n_head, int tq,
-                      int c_len, long long data_bstride, long long scale_bstride, int n_past,
-                      int chunk) {
+                      int c_len, long long data_bstride, long long scale_bstride, int n_past_all,
+                      const int* __restrict__ n_past_rows, int chunk) {
   extern __shared__ __align__(16) float smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int ranks = static_cast<int>(cluster.num_blocks());
@@ -343,6 +347,9 @@ attention_int8_kernel(const T* __restrict__ q, const int8_t* __restrict__ k8,
 
   const int bh = blockIdx.x / ranks;
   const int b = bh / n_head, h = bh % n_head;
+  // this row's position (< 0: cross-attention, every key): its own from
+  // device memory when the call is ragged
+  const int n_past = n_past_rows != nullptr ? n_past_rows[b] : n_past_all;
   const int t0 = blockIdx.y * ROWS;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   // this rank's keys that any of this block's rows can see
@@ -494,7 +501,8 @@ attention_int8_kernel(const T* __restrict__ q, const int8_t* __restrict__ k8,
 template <typename T, int ROWS>
 cudaError_t launch(const void* q, const void* k8, const void* ks, const void* v8, const void* vs,
                    void* out, int batch, int n_head, int tq, int c_len, long long data_bstride,
-                   long long scale_bstride, int n_past, int ranks, int chunk, cudaStream_t s) {
+                   long long scale_bstride, int n_past, const int* n_past_rows, int ranks,
+                   int chunk, cudaStream_t s) {
   if (ranks < 1 || ranks > MAX_RANKS || chunk < 4 || chunk % 4 != 0 || chunk > MAX_CHUNK) {
     return cudaErrorInvalidValue;
   }
@@ -526,7 +534,7 @@ cudaError_t launch(const void* q, const void* k8, const void* ks, const void* v8
       &cfg, kernel, static_cast<const T*>(q), static_cast<const int8_t*>(k8),
       static_cast<const float*>(ks), static_cast<const int8_t*>(v8),
       static_cast<const float*>(vs), static_cast<T*>(out), n_head, tq, c_len, data_bstride,
-      scale_bstride, n_past, chunk);
+      scale_bstride, n_past, n_past_rows, chunk);
   const cudaError_t last = cudaGetLastError();  // read (and clear) either way
   return err != cudaSuccess ? err : last;
 }
@@ -534,12 +542,12 @@ cudaError_t launch(const void* q, const void* k8, const void* ks, const void* v8
 template <typename T>
 cudaError_t dispatch(int rows, const void* q, const void* k8, const void* ks, const void* v8,
                      const void* vs, void* out, int batch, int n_head, int tq, int c_len,
-                     long long data_bstride, long long scale_bstride, int n_past, int ranks,
-                     int chunk, cudaStream_t s) {
+                     long long data_bstride, long long scale_bstride, int n_past,
+                     const int* n_past_rows, int ranks, int chunk, cudaStream_t s) {
 #define WHISPER_K4_ROWS(R)                                                                   \
   case R:                                                                                    \
     return launch<T, R>(q, k8, ks, v8, vs, out, batch, n_head, tq, c_len, data_bstride,      \
-                        scale_bstride, n_past, ranks, chunk, s);
+                        scale_bstride, n_past, n_past_rows, ranks, chunk, s);
   switch (rows) {
     WHISPER_K4_ROWS(1)
     WHISPER_K4_ROWS(2)
@@ -556,8 +564,14 @@ cudaError_t dispatch(int rows, const void* q, const void* k8, const void* ks, co
 
 // q and out (batch, n_head, tq, 64) contiguous, f32 (is_bf16 == 0) or bf16;
 // k8/v8 int8 at [b * data_bstride + (h * 64 + d) * c_len + c]; k_scale/v_scale
-// f32 at [b * scale_bstride + h * c_len + c]. n_past < 0: every key attends
-// (cross-attention); n_past >= 0: key c attends query t iff c <= n_past + t.
+// f32 at [b * scale_bstride + h * c_len + c]. n_past < 0 and n_past_rows
+// null: every key attends (cross-attention); otherwise key c attends query t
+// of row b iff c <= n_past[b] + t, where n_past[b] is n_past_rows[b] (a
+// (batch,) int32 array on the device, each >= 0: the serving engine's
+// slots) or n_past. A ragged call's plan covers every key of the cache
+// (cross_attention_int8_plan(c_len, tq, c_len - tq)); each rank still copies
+// only the keys of its range that its row can see, and a rank with none
+// adds a max of -1e30 and a sum of 0 to the cluster's exchange.
 // rows (1, 2, 4, 5 or 8) query rows per cluster; ranks (1..8) blocks per
 // cluster, rank i holding keys [i * chunk, (i + 1) * chunk) of those the call
 // sees (chunk a multiple of 4, at most 1024). Launches on `stream` and
@@ -566,14 +580,16 @@ cudaError_t dispatch(int rows, const void* q, const void* k8, const void* ks, co
 extern "C" int whisper_attention_int8(const void* q, const void* k8, const void* k_scale,
                                       const void* v8, const void* v_scale, void* out, int batch,
                                       int n_head, int tq, int c_len, long long data_bstride,
-                                      long long scale_bstride, int n_past, int rows, int ranks,
-                                      int chunk, int is_bf16, void* stream) {
+                                      long long scale_bstride, int n_past,
+                                      const int* n_past_rows, int rows, int ranks, int chunk,
+                                      int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
       is_bf16 ? dispatch<__nv_bfloat16>(rows, q, k8, k_scale, v8, v_scale, out, batch, n_head, tq,
-                                        c_len, data_bstride, scale_bstride, n_past, ranks, chunk,
-                                        s)
+                                        c_len, data_bstride, scale_bstride, n_past, n_past_rows,
+                                        ranks, chunk, s)
               : dispatch<float>(rows, q, k8, k_scale, v8, v_scale, out, batch, n_head, tq,
-                                c_len, data_bstride, scale_bstride, n_past, ranks, chunk, s);
+                                c_len, data_bstride, scale_bstride, n_past, n_past_rows, ranks,
+                                chunk, s);
   return static_cast<int>(err);
 }

@@ -52,8 +52,12 @@
 // K tiles, then V tiles, each issued as soon as its slot is free. At the
 // main paths' shapes K and V are one tile each, both in flight from entry.
 // Keys past the last row's mask contribute exp(-1e30 - max) = 0 and are
-// skipped, which leaves every sum as it was. The launch has no host sync and
-// allocates nothing, so it can be captured in a CUDA graph.
+// skipped, which leaves every sum as it was. The serving engine's slots
+// each carry their own position: a ragged call reads row b's n_past from a
+// (B,) int32 array in device memory, so the host never learns the largest
+// one; its launch plan is sized for the whole cache, and each block copies
+// and computes only its own row's visible keys. The launch has no host
+// sync and allocates nothing, so it can be captured in a CUDA graph.
 //
 // Plain C interface, loaded with ctypes by whisper_tpu_torch/kernels/build.py.
 
@@ -161,10 +165,13 @@ template <typename TQ, typename TKV, int ROWS>
 __global__ void __launch_bounds__(THREADS)
 cached_attention_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
                         const TKV* __restrict__ v, TQ* __restrict__ out, int n_head, int tq,
-                        int c_len, long long kv_bstride, int n_past, float scale, int width) {
+                        int c_len, long long kv_bstride, int n_past_all,
+                        const int* __restrict__ n_past_rows, float scale, int width) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int ESZ = sizeof(TKV);
-  const int c_max = min(c_len, n_past + tq);
+  // the layout is the plan's, sized from the scalar n_past (C - T for a
+  // ragged call: every key of the cache)
+  const int c_max = min(c_len, n_past_all + tq);
   const Layout l = layout(ROWS, c_max, width, ESZ);
   float* qs = reinterpret_cast<float*>(smem);  // [ROWS][D]
   float* lg = qs + l.lg;                        // [ROWS][lstride]
@@ -172,6 +179,8 @@ cached_attention_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
 
   const int bh = blockIdx.x;
   const int b = bh / n_head, h = bh % n_head;
+  // this row's position: its own from device memory when the call is ragged
+  const int n_past = n_past_rows != nullptr ? n_past_rows[b] : n_past_all;
   const int t0 = blockIdx.y * ROWS;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   // keys any of this block's rows can see
@@ -276,8 +285,8 @@ cached_attention_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
 
 template <typename TQ, typename TKV, int ROWS>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out, int batch,
-                   int n_head, int tq, int c_len, long long kv_bstride, int n_past, float scale,
-                   int width, cudaStream_t s) {
+                   int n_head, int tq, int c_len, long long kv_bstride, int n_past,
+                   const int* n_past_rows, float scale, int width, cudaStream_t s) {
   const int c_max = min(c_len, n_past + tq);
   const Layout l = layout(ROWS, c_max, width, sizeof(TKV));
   if (width < 1 || l.bytes > SMEM_MAX) return cudaErrorInvalidValue;
@@ -292,27 +301,28 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int b
   const dim3 grid(batch * n_head, (tq + ROWS - 1) / ROWS);
   kernel<<<grid, THREADS, l.bytes, s>>>(static_cast<const TQ*>(q), static_cast<const TKV*>(k),
                                         static_cast<const TKV*>(v), static_cast<TQ*>(out),
-                                        n_head, tq, c_len, kv_bstride, n_past, scale, width);
+                                        n_head, tq, c_len, kv_bstride, n_past, n_past_rows,
+                                        scale, width);
   return cudaGetLastError();
 }
 
 template <typename TQ, typename TKV>
 cudaError_t dispatch(int rows, const void* q, const void* k, const void* v, void* out,
                      int batch, int n_head, int tq, int c_len, long long kv_bstride, int n_past,
-                     float scale, int width, cudaStream_t s) {
+                     const int* n_past_rows, float scale, int width, cudaStream_t s) {
   switch (rows) {
     case 1:
       return launch<TQ, TKV, 1>(q, k, v, out, batch, n_head, tq, c_len, kv_bstride, n_past,
-                                scale, width, s);
+                                n_past_rows, scale, width, s);
     case 2:
       return launch<TQ, TKV, 2>(q, k, v, out, batch, n_head, tq, c_len, kv_bstride, n_past,
-                                scale, width, s);
+                                n_past_rows, scale, width, s);
     case 4:
       return launch<TQ, TKV, 4>(q, k, v, out, batch, n_head, tq, c_len, kv_bstride, n_past,
-                                scale, width, s);
+                                n_past_rows, scale, width, s);
     case 8:
       return launch<TQ, TKV, 8>(q, k, v, out, batch, n_head, tq, c_len, kv_bstride, n_past,
-                                scale, width, s);
+                                n_past_rows, scale, width, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -322,28 +332,35 @@ cudaError_t dispatch(int rows, const void* q, const void* k, const void* v, void
 
 // q and out (batch, n_head, tq, 64) contiguous, f32 (q_bf16 == 0) or bf16;
 // k and v f32 (kv_bf16 == 0) or bf16 at [b * kv_bstride + (h * 64 + d) *
-// c_len + c]. Key c attends query t iff c <= n_past + t. rows (1, 2, 4 or 8)
-// query rows per block; width keys a K or V tile holds, as
-// cached_attention_plan gives them; the layout must fit 227 KB. Launches on `stream` and returns the
+// c_len + c]. Key c attends query t of row b iff c <= n_past[b] + t, where
+// n_past[b] is n_past_rows[b] (a (batch,) int32 array on the device, each
+// >= 0: the serving engine's slots) or, when n_past_rows is null, n_past.
+// A ragged call passes n_past = max(0, c_len - tq), which sizes the layout
+// for every key of the cache; each block still reads only its own row's
+// min(c_len, n_past[b] + tq) keys. rows (1, 2, 4 or 8) query rows per
+// block; width keys a K or V tile holds, as cached_attention_plan gives
+// them; the layout must fit 227 KB. Launches on `stream` and returns the
 // cudaError_t of the launch (0 on success); it does not synchronise.
 extern "C" int whisper_cached_attention(const void* q, const void* k, const void* v, void* out,
                                         int batch, int n_head, int tq, int c_len,
-                                        long long kv_bstride, int n_past, float scale, int rows,
-                                        int width, int q_bf16, int kv_bf16, void* stream) {
+                                        long long kv_bstride, int n_past, const int* n_past_rows,
+                                        float scale, int rows, int width, int q_bf16,
+                                        int kv_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (q_bf16 && kv_bf16) {
     err = dispatch<__nv_bfloat16, __nv_bfloat16>(rows, q, k, v, out, batch, n_head, tq, c_len,
-                                                 kv_bstride, n_past, scale, width, s);
+                                                 kv_bstride, n_past, n_past_rows, scale, width,
+                                                 s);
   } else if (q_bf16) {
     err = dispatch<__nv_bfloat16, float>(rows, q, k, v, out, batch, n_head, tq, c_len,
-                                         kv_bstride, n_past, scale, width, s);
+                                         kv_bstride, n_past, n_past_rows, scale, width, s);
   } else if (kv_bf16) {
     err = dispatch<float, __nv_bfloat16>(rows, q, k, v, out, batch, n_head, tq, c_len,
-                                         kv_bstride, n_past, scale, width, s);
+                                         kv_bstride, n_past, n_past_rows, scale, width, s);
   } else {
     err = dispatch<float, float>(rows, q, k, v, out, batch, n_head, tq, c_len, kv_bstride,
-                                 n_past, scale, width, s);
+                                 n_past, n_past_rows, scale, width, s);
   }
   return static_cast<int>(err);
 }

@@ -28,7 +28,7 @@ class RuleState(NamedTuple):
 
 def _apply_rules_device(
     logits: torch.Tensor,          # (B, V) f32
-    step: int,                     # 0 at the first sampled position
+    step,                          # int, or (B,) int tensor: 0 at the first sampled position
     state: RuleState,
     suppress_mask: torch.Tensor,   # (V,) bool: True = never sample
     blank_mask: torch.Tensor,      # (V,) bool: suppressed at step 0 only
@@ -36,17 +36,36 @@ def _apply_rules_device(
     use_timestamps: bool,
     max_initial_index: Optional[int],
 ) -> torch.Tensor:
+    """openai's logit rules over a batch. ``step`` is one int for every row
+    (the device loop) or a (B,) tensor of each row's own step (the engine's
+    slots): the step-0 blank suppression, the first timestamp's bounds and
+    the pairing's start apply per row, with no host read of the tensor."""
     eot, beg, not_, _ = vocab_consts
     ids = torch.arange(logits.shape[-1], device=logits.device)[None, :]
+    per_row = isinstance(step, torch.Tensor)
+    if per_row:
+        step = step.reshape(-1, 1)
+
+    def at_first(mask: torch.Tensor) -> Optional[torch.Tensor]:
+        """``mask`` (.., V) where the row is at step 0, or None if none is."""
+        if per_row:
+            return (step == 0) & mask
+        return mask if step == 0 else None
+
+    def fill(lg: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+        return lg if mask is None else lg.masked_fill(mask, NEG)
+
     logits = logits.masked_fill(suppress_mask[None, :], NEG)
-    if step == 0:
-        logits = logits.masked_fill(blank_mask[None, :], NEG)
+    logits = fill(logits, at_first(blank_mask[None, :]))
 
     if use_timestamps:
         logits[:, not_] = NEG
         last_was = state.last_tok >= beg
-        penult_was = (torch.ones_like(last_was) if step < 2
-                      else state.prev_tok >= beg)
+        if per_row:
+            penult_was = (step[:, 0] < 2) | (state.prev_tok >= beg)
+        else:
+            penult_was = (torch.ones_like(last_was) if step < 2
+                          else state.prev_tok >= beg)
         is_ts = ids >= beg
         is_text = ids < eot
         # pair closed -> no timestamps; pair open -> no text
@@ -57,11 +76,10 @@ def _apply_rules_device(
         last_allowed = torch.where(last_was & ~penult_was, state.last_ts, state.last_ts + 1)
         logits = logits.masked_fill(
             seen_ts[:, None] & is_ts & (ids < last_allowed[:, None]), NEG)
-        if step == 0:
-            # the first sampled token is a timestamp, at most max_initial
-            logits = logits.masked_fill(ids < beg, NEG)
-            if max_initial_index is not None:
-                logits = logits.masked_fill(ids > beg + max_initial_index, NEG)
+        # the first sampled token is a timestamp, at most max_initial
+        logits = fill(logits, at_first(ids < beg))
+        if max_initial_index is not None:
+            logits = fill(logits, at_first(ids > beg + max_initial_index))
         # probability-mass rule
         logprobs = torch.log_softmax(logits, dim=-1)
         ts_mass = torch.logsumexp(logprobs.masked_fill(~is_ts, NEG), dim=-1)

@@ -41,6 +41,29 @@ def frame_count(n_samples: int, center: bool = True) -> int:
     return n_samples // HOP_LENGTH
 
 
+@functools.lru_cache(maxsize=8)
+def _device_constants(device: torch.device):
+    """Hann window, the DFT basis and the fold weights on ``device``, copied
+    there once (normal tensors, also when first asked for under inference
+    mode)."""
+    cos_np, sin_np = _dft_matrices_np()
+    fold = np.full(_N_BINS, 2.0, np.float32)
+    fold[[0, -1]] = 1.0
+    with torch.inference_mode(False):
+        return tuple(torch.from_numpy(a).to(device)
+                     for a in (hann_window_np(), cos_np, sin_np, fold))
+
+
+@functools.lru_cache(maxsize=16)
+def _reflect_index(n: int, device: torch.device) -> torch.Tensor:
+    """numpy's "reflect" padding of ``n`` samples by N_FFT // 2 each side
+    (no edge repeat, any length, as jnp.pad does; F.pad(mode="reflect")
+    would refuse audio shorter than the pad), as a gather index."""
+    idx = np.pad(np.arange(n), (N_FFT // 2, N_FFT // 2), mode="reflect")
+    with torch.inference_mode(False):
+        return torch.from_numpy(idx).to(device)
+
+
 def log_mel_spectrogram(
     audio: torch.Tensor,
     filters: torch.Tensor,
@@ -49,46 +72,38 @@ def log_mel_spectrogram(
     fold: bool = False,
     speed_up: bool = False,
 ) -> torch.Tensor:
-    """audio (n_samples,) f32, filters (n_mel, 201) -> mel (n_mel, n_frames),
-    on audio's device. ``n_frames`` must be ``frame_count(len(audio), center)``."""
+    """audio (..., n_samples) f32, filters (n_mel, 201) -> mel (..., n_mel,
+    n_frames), on audio's device; each leading row is its own clip (its own
+    reflect padding and max normalisation). ``n_frames`` must be
+    ``frame_count(n_samples, center)``."""
     audio = audio.float()
-    n = audio.shape[0]
-    if center:
-        # numpy's "reflect" (no edge repeat) for any length, as jnp.pad does;
-        # F.pad(mode="reflect") would refuse audio shorter than the pad.
-        idx = np.pad(np.arange(n), (N_FFT // 2, N_FFT // 2), mode="reflect")
-        padded = audio[torch.from_numpy(idx).to(audio.device)]
-    else:
-        padded = audio
+    dev = audio.device
+    hann, cos, sin, foldv = _device_constants(dev)
+    padded = audio[..., _reflect_index(audio.shape[-1], dev)] if center else audio
     # Zero-pad the tail so every frame is in bounds.
     need = (n_frames - 1) * HOP_LENGTH + N_FFT
-    padded = torch.nn.functional.pad(padded, (0, max(0, need - padded.shape[0])))
+    padded = torch.nn.functional.pad(padded, (0, max(0, need - padded.shape[-1])))
 
-    hann = torch.from_numpy(hann_window_np()).to(audio.device)
-    frames = padded.unfold(0, N_FFT, HOP_LENGTH)[:n_frames] * hann[None, :]
-
-    cos_np, sin_np = _dft_matrices_np()
-    re = frames @ torch.from_numpy(cos_np).to(audio.device)  # (n_frames, 201)
-    im = frames @ torch.from_numpy(sin_np).to(audio.device)
+    frames = padded.unfold(-1, N_FFT, HOP_LENGTH)[..., :n_frames, :] * hann
+    re = frames @ cos  # (..., n_frames, 201)
+    im = frames @ sin
     power = re * re + im * im
 
     if fold:
         # whisper.cpp-1.0.3's symmetric-bin fold: doubles bins 1..199 only.
-        foldv = torch.ones(_N_BINS, device=audio.device)
-        foldv[1:-1] = 2.0
-        power = power * foldv[None, :]
+        power = power * foldv
 
     if speed_up:
         # Average adjacent power bins; filters must then span n_fft//4 + 1 bins.
-        power = 0.5 * (power[:, 0:-1:2] + power[:, 1::2])  # (n_frames, 100)
-        power = torch.nn.functional.pad(power, (0, 1))    # bin n_fft/4 -> 101
+        power = 0.5 * (power[..., 0:-1:2] + power[..., 1::2])  # (..., n_frames, 100)
+        power = torch.nn.functional.pad(power, (0, 1))        # bin n_fft/4 -> 101
 
-    filters = filters.to(device=audio.device, dtype=torch.float32)
-    mel = power[:, : filters.shape[1]] @ filters.T  # (n_frames, n_mel)
+    filters = filters.to(device=dev, dtype=torch.float32)
+    mel = power[..., : filters.shape[1]] @ filters.T  # (..., n_frames, n_mel)
     log_spec = torch.log10(torch.clamp(mel, min=1e-10))
-    log_spec = torch.maximum(log_spec, log_spec.max() - 8.0)
+    log_spec = torch.maximum(log_spec, log_spec.amax(dim=(-2, -1), keepdim=True) - 8.0)
     log_spec = (log_spec + 4.0) / 4.0
-    return log_spec.T  # mel-major (n_mel, n_frames)
+    return log_spec.transpose(-1, -2)  # mel-major (..., n_mel, n_frames)
 
 
 def mel_window(mel: torch.Tensor, offset: int, n_frames_window: int) -> torch.Tensor:

@@ -15,7 +15,8 @@ split leaves ``pv_out``'s numerics as they are.
 
 One kernel serves both decoder sites: cross-attention (``n_past=None``,
 every key) and self-attention over the int8 cache (an int ``n_past``: key
-``c`` attends query ``t`` iff ``c <= n_past + t``).
+``c`` attends query ``t`` iff ``c <= n_past + t``; or a (B,) tensor, each
+row at its own position, read by the kernel from device memory).
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from ..model.quant import QuantKV, quant_sdpa
+from .decode_attention import causal_mask, check_rows
 
 D_HEAD = 64
 ROW_CHOICES = (1, 2, 4, 5, 8)  # query rows a cluster takes (csrc: WHISPER_K4_ROWS)
@@ -75,13 +77,13 @@ def cross_attention_int8_plan(c_len: int, tq: int, n_past: Optional[int] = None,
 
 
 def cross_attention_int8_reference(q, k8, k_scale, v8, v_scale,
-                                   n_past: Optional[int] = None) -> torch.Tensor:
-    """``quant_sdpa`` over (B,H,T,D) q and (B,H,D,C) int8 K/V."""
+                                   n_past=None) -> torch.Tensor:
+    """``quant_sdpa`` over (B,H,T,D) q and (B,H,D,C) int8 K/V, causal at
+    ``n_past`` (an int: a (T, C) mask; a (B,) tensor: (B, 1, T, C)) or, with
+    None, over every key."""
     mask = None
     if n_past is not None:
-        C, T = k8.shape[-1], q.shape[-2]
-        key_pos = torch.arange(C, device=q.device)[None, :]
-        mask = key_pos <= n_past + torch.arange(T, device=q.device)[:, None]
+        mask = causal_mask(n_past, q.shape[-2], k8.shape[-1], q.device)
     return quant_sdpa(q, QuantKV(k8, k_scale), QuantKV(v8, v_scale), mask, q.dtype)
 
 
@@ -132,14 +134,16 @@ def _entry():
 
     fn = load_library("cross_attention_int8").whisper_attention_int8
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 2
-                   + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+                   + [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(q, k8, k_scale, v8, v_scale, n_past: Optional[int], plan: K4Plan) -> torch.Tensor:
+def _launch(q, k8, k_scale, v8, v_scale, n_past: Optional[int], plan: K4Plan,
+            rows: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One launch of the kernel over checked CUDA tensors, as ``plan`` splits
-    the keys."""
+    the keys; ``rows`` is a checked per-row n_past (then ``n_past`` is the
+    scalar the plan was sized with)."""
     B, H, T, _ = q.shape
     C = k8.shape[-1]
     out = torch.empty_like(q)
@@ -148,33 +152,46 @@ def _launch(q, k8, k_scale, v8, v_scale, n_past: Optional[int], plan: K4Plan) ->
         err = _entry()(q.data_ptr(), k8.data_ptr(), k_scale.data_ptr(), v8.data_ptr(),
                        v_scale.data_ptr(), out.data_ptr(), B, H, T, C, k8.stride(0),
                        k_scale.stride(0), -1 if n_past is None else n_past,
+                       None if rows is None else rows.data_ptr(),
                        _rows_per_block(T, C), plan.ranks, plan.chunk,
                        int(q.dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"cross_attention_int8 kernel launch failed: cudaError {err}")
     cross_attention_int8.launches += 1
     cross_attention_int8.masked_launches += n_past is not None
+    cross_attention_int8.ragged_launches += rows is not None
     return out
 
 
 def cross_attention_int8(q: torch.Tensor, k8: torch.Tensor, k_scale: torch.Tensor,
                          v8: torch.Tensor, v_scale: torch.Tensor,
-                         n_past: Optional[int] = None) -> torch.Tensor:
+                         n_past=None) -> torch.Tensor:
     """softmax((q · k8) · k_scale) · (v8 · v_scale) over (B,H,T,64) q and
     kv-major (B,H,64,C) int8 K/V with (B,H,C) f32 scales; the result has q's
-    dtype. On the card the keys are split as ``cross_attention_int8_plan``
-    says. ``cross_attention_int8.launches`` counts kernel launches, and
-    ``.masked_launches`` those with an ``n_past`` (self-attention)."""
+    dtype. ``n_past`` None attends every key (cross-attention); an int, or a
+    (B,) int32 tensor on q's device with each row's own position (the
+    engine's slots, read by the kernel in device memory), is the causal
+    limit of self-attention. On the card the keys are split as
+    ``cross_attention_int8_plan`` says, over the whole cache for a tensor.
+    ``cross_attention_int8.launches`` counts kernel launches,
+    ``.masked_launches`` those with an ``n_past`` (self-attention) and
+    ``.ragged_launches`` those with a tensor ``n_past``."""
     if q.device.type == "cpu":
         return cross_attention_int8_reference(q, k8, k_scale, v8, v_scale, n_past)
     if q.device.type != "cuda":
         raise ValueError(f"cross_attention_int8 runs on cpu or cuda, not {q.device}")
     _check(q, k8, k_scale, v8, v_scale)
-    if n_past is not None and n_past < 0:
+    C, T = k8.shape[-1], q.shape[2]
+    rows = None
+    if isinstance(n_past, torch.Tensor):
+        check_rows(n_past, q, "cross_attention_int8")
+        rows, n_past = n_past, max(0, C - T)
+    elif n_past is not None and n_past < 0:
         raise ValueError(f"n_past must be >= 0, got {n_past}")
-    plan = cross_attention_int8_plan(k8.shape[-1], q.shape[2], n_past)
-    return _launch(q, k8, k_scale, v8, v_scale, n_past, plan)
+    plan = cross_attention_int8_plan(C, T, n_past)
+    return _launch(q, k8, k_scale, v8, v_scale, n_past, plan, rows)
 
 
 cross_attention_int8.launches = 0
 cross_attention_int8.masked_launches = 0
+cross_attention_int8.ragged_launches = 0

@@ -9,6 +9,13 @@ in f32). The kernel reads one layer of the port's batch-leading
 (B, L, H, D, C) cache in place, through its batch stride; it needs neither
 the TPU kernel's layer-leading layout nor its 128-padded context.
 
+``n_past`` is an int shared by every row, or a (B,) int32 tensor on the
+device with each row's own position (the serving engine's slots): the
+kernel then reads row b's position in device memory, the launch plan is
+sized for the whole cache, and each block still reads only its row's
+visible keys. The plain version takes the same tensor, under a
+(B, 1, T, C) mask.
+
 On a CUDA tensor ``cached_attention`` launches ``csrc/decode_attention.cu``;
 on a CPU tensor it runs ``cached_attention_reference``. There is no other
 route: a CUDA call that the kernel cannot take raises.
@@ -119,16 +126,20 @@ def _kvmajor_sdpa(q, k, v, mask: Optional[torch.Tensor], scale: float):
     return torch.matmul(probs.float(), v.float().transpose(-1, -2)).to(q.dtype)
 
 
-def causal_mask(n_past: int, t: int, c: int, device) -> torch.Tensor:
-    """(T, C) bool: key ``c`` is seen by query ``t`` iff c <= n_past + t."""
-    key_pos = torch.arange(c, device=device)[None, :]
-    return key_pos <= n_past + torch.arange(t, device=device)[:, None]
+def causal_mask(n_past, t: int, c: int, device) -> torch.Tensor:
+    """Key ``c`` is seen by query ``t`` iff c <= n_past + t: (T, C) bool for
+    an int ``n_past``, (B, 1, T, C) for a (B,) tensor of each row's own."""
+    key_pos = torch.arange(c, device=device)
+    q_pos = torch.arange(t, device=device)[:, None]
+    if isinstance(n_past, torch.Tensor):
+        return key_pos <= n_past.reshape(-1, 1, 1, 1) + q_pos
+    return key_pos[None, :] <= n_past + q_pos
 
 
 def cached_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                               n_past: int) -> torch.Tensor:
+                               n_past) -> torch.Tensor:
     """``_kvmajor_sdpa`` over (B,H,T,D) q and one (B,H,D,C) cache layer,
-    with the causal mask at ``n_past``."""
+    with the causal mask at ``n_past`` (an int, or a (B,) tensor)."""
     mask = causal_mask(n_past, q.shape[-2], k.shape[-1], q.device)
     return _kvmajor_sdpa(q, k, v, mask, q.shape[-1] ** -0.5)
 
@@ -157,43 +168,63 @@ def _check(q, k, v) -> None:
                          f"got {k.stride()}, {v.stride()}")
 
 
+def check_rows(n_past: torch.Tensor, q: torch.Tensor, who: str) -> None:
+    """A per-row ``n_past`` must be a contiguous (B,) int32 tensor on q's
+    device: the kernels read it there. Its values are never read on the host
+    (each must be >= 0)."""
+    if (n_past.dtype != torch.int32 or n_past.shape != (q.shape[0],)
+            or n_past.device != q.device or not n_past.is_contiguous()):
+        raise ValueError(f"{who}: a per-row n_past must be a contiguous ({q.shape[0]},) int32 "
+                         f"tensor on {q.device}, got {n_past.dtype} {tuple(n_past.shape)} on "
+                         f"{n_past.device}")
+
+
 @functools.cache
 def _entry():
     """The kernel's C entry point, resolved and typed once per process."""
     fn = load_library("decode_attention").whisper_cached_attention
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_longlong, ctypes.c_int,
-                                                                 ctypes.c_float]
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+                   + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_float]
                    + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
 def cached_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     n_past: int) -> torch.Tensor:
+                     n_past) -> torch.Tensor:
     """softmax(q kᵀ · D^-0.5, causal at ``n_past``) v over (B,H,T,64) q and
     one kv-major (B,H,64,C) layer of the float cache (f32 or bf16, the batch
-    stride free); the result has q's dtype. On the card the launch follows
-    ``cached_attention_plan``. ``cached_attention.launches`` counts kernel
-    launches."""
+    stride free); the result has q's dtype. ``n_past`` is an int, or a (B,)
+    int32 tensor on q's device with each row's own position (the engine's
+    slots), which the kernel reads in device memory. On the card the launch
+    follows ``cached_attention_plan``, sized for the whole cache when
+    ``n_past`` is a tensor. ``cached_attention.launches`` counts kernel
+    launches, ``.ragged_launches`` those with a tensor ``n_past``."""
     if q.device.type == "cpu":
         return cached_attention_reference(q, k, v, n_past)
     if q.device.type != "cuda":
         raise ValueError(f"cached_attention runs on cpu or cuda, not {q.device}")
     _check(q, k, v)
-    if n_past < 0:
-        raise ValueError(f"n_past must be >= 0, got {n_past}")
     B, H, T, _ = q.shape
     C = k.shape[-1]
+    rows = None
+    if isinstance(n_past, torch.Tensor):
+        check_rows(n_past, q, "cached_attention")
+        rows, n_past = n_past.data_ptr(), max(0, C - T)
+    elif n_past < 0:
+        raise ValueError(f"n_past must be >= 0, got {n_past}")
     plan = cached_attention_plan(C, T, n_past, k.element_size())
     out = torch.empty_like(q)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, T, C, k.stride(0),
-            n_past, D_HEAD ** -0.5, plan.rows, plan.width, int(q.dtype == torch.bfloat16),
+            n_past, rows, D_HEAD ** -0.5, plan.rows, plan.width, int(q.dtype == torch.bfloat16),
             int(k.dtype == torch.bfloat16), torch.cuda.current_stream(q.device).cuda_stream)
     err = launch_on(q.device, _entry(), *args)
     if err != 0:
         raise RuntimeError(f"cached_attention kernel launch failed: cudaError {err}")
     cached_attention.launches += 1
+    cached_attention.ragged_launches += rows is not None
     return out
 
 
 cached_attention.launches = 0
+cached_attention.ragged_launches = 0

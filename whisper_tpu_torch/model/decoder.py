@@ -1,6 +1,7 @@
 """Whisper text decoder with a KV cache, in PyTorch (bf16/f32 parity mode).
 
-Port of ``whisper_tpu/model/decoder.py`` for a scalar ``n_past``:
+Port of ``whisper_tpu/model/decoder.py``, at a scalar ``n_past`` or, at
+T = 1, a per-row (B,) ``n_past`` tensor (the serving engine's slots):
 
   * the self-attention cache is batch-leading and kv-major,
     (B, n_layer, H, d_head, ctx), as in JAX; the new K/V columns are written
@@ -24,8 +25,8 @@ int8 decode-attention kernel (K4, ``kernels.cross_attention_int8``).
 sequence and returns every layer's cross-attention distribution, the
 alignment signal of word timing (``pipeline/word_timing.py``).
 
-Not ported yet: ``permute_rows`` (the beam engine's fused reorder), ragged
-``n_past``, ``defer_append`` and ``decode_step_chunk``.
+Not ported yet: ``permute_rows`` (the beam engine's fused reorder), the
+ragged multi-token verify block, ``defer_append`` and ``decode_step_chunk``.
 """
 
 from __future__ import annotations
@@ -41,6 +42,9 @@ from ..kernels.decode_attention import cached_attention
 from ..kernels.ops import gelu, layer_norm, linear, merge_heads, split_heads
 from .params import Params, check_quantized, register_weights
 from .quant import QuantKV, _quantize_one
+
+
+NPast = Union[int, torch.Tensor]  # one position for every row, or (B,) int32 on the device
 
 
 class KVCache(NamedTuple):
@@ -157,34 +161,59 @@ class DecoderBlock(nn.Module):
         register_weights(self, blk)
         self.cfg = cfg
 
-    def forward(self, x, cache: KVCache, layer: int, cross_k, cross_v, n_past: int):
+    def forward(self, x, cache: KVCache, layer: int, cross_k, cross_v, n_past: NPast):
         """Causal self-attention over the cache, then cross-attention and
         MLP; returns (x, cross probabilities or None, see ``_cross_mlp``).
         The T new K/V columns are written into ``cache`` in place at
-        ``n_past`` (clamped, like ``dynamic_update_slice``, so they fit);
-        an int8 cache takes them quantized, codes and scales."""
+        ``n_past`` (an int: clamped, like ``dynamic_update_slice``, so they
+        fit; a (B,) tensor at T = 1: row b's column at n_past[b], dropped
+        where that is past the cache, like JAX's scatter); an int8 cache
+        takes them quantized, codes and scales."""
         cfg = self.cfg
         h, d = cfg.n_text_head, cfg.d_head_text
         T = x.shape[1]
         C = getattr(cache.k, "data", cache.k).shape[-1]
         y = layer_norm(x, self.attn_ln_w, self.attn_ln_b)
         q, k_new, v_new = _project_qkv(y, self, h)
-        start = max(0, min(n_past, C - T))
+        ragged = isinstance(n_past, torch.Tensor)
+        start = 0 if ragged else max(0, min(n_past, C - T))
         if isinstance(cache.k, QuantKV):
             for buf, new in ((cache.k, k_new), (cache.v, v_new)):
                 q8 = _quantize_one(new)
-                buf.data[:, layer, :, :, start:start + T] = q8.data
-                buf.scale[:, layer, :, start:start + T] = q8.scale
+                if ragged:
+                    _append_rows(buf.data, layer, q8.data[..., 0], n_past)
+                    _append_rows(buf.scale, layer, q8.scale[..., 0], n_past)
+                else:
+                    buf.data[:, layer, :, :, start:start + T] = q8.data
+                    buf.scale[:, layer, :, start:start + T] = q8.scale
             qs = q * _scalar(d ** -0.5, q.dtype)
             o = cross_attention_int8(qs.contiguous(), cache.k.data[:, layer],
                                      cache.k.scale[:, layer], cache.v.data[:, layer],
                                      cache.v.scale[:, layer], n_past=n_past)
         else:
-            cache.k[:, layer, :, :, start:start + T] = k_new
-            cache.v[:, layer, :, :, start:start + T] = v_new
+            if ragged:
+                _append_rows(cache.k, layer, k_new[..., 0].to(cache.k.dtype), n_past)
+                _append_rows(cache.v, layer, v_new[..., 0].to(cache.v.dtype), n_past)
+            else:
+                cache.k[:, layer, :, :, start:start + T] = k_new
+                cache.v[:, layer, :, :, start:start + T] = v_new
             o = cached_attention(q.contiguous(), cache.k[:, layer], cache.v[:, layer], n_past)
         x = x + _plinear(merge_heads(o), self, "out_w", "out_b")
         return _cross_mlp(x, self, cross_k, cross_v, cfg)
+
+
+def _append_rows(buf: torch.Tensor, layer: int, new: torch.Tensor, n_past: torch.Tensor) -> None:
+    """Write ``new`` (B, ...) into ``buf`` (B, L, ..., C) at (b, layer, ...,
+    n_past[b]) in place: the ragged T = 1 append. A row whose n_past is past
+    the cache keeps its buffer as it was (JAX's scatter drops that write);
+    the column index is clamped so that nothing past C is addressed, and
+    no value of ``n_past`` is read on the host."""
+    C = buf.shape[-1]
+    rows = torch.arange(buf.shape[0], device=buf.device)
+    col = n_past.clamp(0, C - 1)
+    idx = (rows, layer) + (slice(None),) * (buf.dim() - 3) + (col,)
+    keep = (n_past >= C).reshape((-1,) + (1,) * (new.dim() - 1))
+    buf[idx] = torch.where(keep, buf[idx], new)
 
 
 class TextDecoder(nn.Module):
@@ -201,7 +230,7 @@ class TextDecoder(nn.Module):
             DecoderBlock({k: v[i] for k, v in blocks.items()}, cfg)
             for i in range(cfg.n_text_layer))
 
-    def forward(self, tokens, n_past: int, cache: KVCache, cross_k, cross_v):
+    def forward(self, tokens, n_past: NPast, cache: KVCache, cross_k, cross_v):
         return decode_step(self, tokens, n_past, cache, cross_k, cross_v)
 
 
@@ -212,16 +241,25 @@ def _layer(cross, layer: int):
     return cross[layer]
 
 
-def decode_step(decoder: TextDecoder, tokens: torch.Tensor, n_past: int, cache: KVCache,
+def decode_step(decoder: TextDecoder, tokens: torch.Tensor, n_past: NPast, cache: KVCache,
                 cross_k, cross_v) -> Tuple[torch.Tensor, KVCache]:
     """Forward ``T`` new tokens (B, T) at position ``n_past``; returns
     (logits (B, T, n_vocab) f32, cache), the cache updated in place. The
     cross memory (L, B, H, D, Ta) is float or ``QuantKV``.
 
+    ``n_past`` is an int shared by every row, or a (B,) int32 tensor on the
+    model's device with each row's own position (the engine's slots; T = 1
+    only): key ``c`` is then seen by row b iff c <= n_past[b], and the new
+    column goes to n_past[b]. The tensor never reaches the host.
+
     Padded tail positions write garbage K/V past ``n_past + true_len``;
     callers advance ``n_past`` by the true length only, so the next call
     overwrites them. Token ids out of range are wrapped and clamped as JAX's
     gather does, where torch indexing would raise."""
+    if isinstance(n_past, torch.Tensor) and tokens.shape[1] != 1:
+        raise NotImplementedError(
+            "a (B,) n_past with T > 1 is the speculative verify block, which the port "
+            "does not have yet (ROADMAP item 14)")
     x = _embed(decoder, tokens, n_past)
     for layer, block in enumerate(decoder.blocks):
         x, _ = block(x, cache, layer, _layer(cross_k, layer), _layer(cross_v, layer), n_past)
@@ -232,9 +270,11 @@ def decode_step(decoder: TextDecoder, tokens: torch.Tensor, n_past: int, cache: 
     return matmul_f32(x, decoder.te) * te_scale, cache
 
 
-def _embed(decoder: TextDecoder, tokens: torch.Tensor, n_past: int) -> torch.Tensor:
+def _embed(decoder: TextDecoder, tokens: torch.Tensor, n_past: NPast) -> torch.Tensor:
     """Token embedding (ids wrapped and clamped) plus the positional
-    embedding from ``n_past``, in the positional embedding's dtype."""
+    embedding from ``n_past`` (an int: a slice, clamped as ``dynamic_slice``
+    clamps it; a (B,) tensor: gathered per row, each index clamped as JAX's
+    gather clamps it), in the positional embedding's dtype."""
     T = tokens.shape[1]
     V = decoder.te.shape[0]
     te_scale = getattr(decoder, "te_scale", None)
@@ -242,7 +282,11 @@ def _embed(decoder: TextDecoder, tokens: torch.Tensor, n_past: int) -> torch.Ten
     x = decoder.te[ids].to(decoder.pe.dtype)
     if te_scale is not None:
         x = x * te_scale[ids][..., None].to(x.dtype)
-    start = max(0, min(n_past, decoder.pe.shape[0] - T))  # dynamic_slice clamps
+    P = decoder.pe.shape[0]
+    if isinstance(n_past, torch.Tensor):
+        pos = n_past[:, None] + torch.arange(T, device=n_past.device)[None, :]
+        return x + decoder.pe[pos.clamp(0, P - 1)]
+    start = max(0, min(n_past, P - T))  # dynamic_slice clamps
     return x + decoder.pe[start:start + T][None]
 
 

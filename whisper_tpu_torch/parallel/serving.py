@@ -5,7 +5,7 @@ stream, one batched encoder forward, then all streams decode in lockstep
 (finished streams are frozen at EOT until the batch drains): greedy on the
 device loop; beam search (or best_of) options on the host loop, as the JAX
 package routes them. A device mesh (tensor parallelism) is not ported yet
-and raises.
+and raises. ``auto_engine`` builds a ``BatchTranscriber`` on the card.
 """
 
 from __future__ import annotations
@@ -66,3 +66,15 @@ class BatchTranscriber:
             with model.timers.stage("decode"):
                 return decode_full(model.decoder, model.vocab, enc.cross_k, enc.cross_v,
                                    self.options, use_device_loop=use_device)
+
+
+def auto_engine(model: WhisperModel, batch_size: int = 8, tp: Optional[int] = None
+                ) -> BatchTranscriber:
+    """A ``BatchTranscriber`` over the model's device, as JAX's auto_engine
+    builds one over every visible device: here one card, so no mesh. A
+    tensor-parallel split (``tp`` > 1) raises: that is ROADMAP item 16."""
+    if tp is not None and tp > 1:
+        raise NotImplementedError(
+            f"auto_engine(tp={tp}) needs tensor parallelism (parallel/{{mesh,sharding}}.py), "
+            "which the port does not have yet (ROADMAP item 16)")
+    return BatchTranscriber(model, batch_size)

@@ -14,9 +14,13 @@ allocated.
 
 prints one JSON line with bench.py's keys, configured by bench.py's knobs
 for its default mode (BENCH_MODEL, BENCH_BATCH, BENCH_BEAM, BENCH_KV,
-BENCH_WQ, BENCH_ENC, BENCH_DTYPE, BENCH_SECONDS). The metric name marks the
-backend (``rtf_torch_...``); the engine and speculative modes
-(BENCH_MODE=engine|spec) wait for their modules and exit non-zero.
+BENCH_WQ, BENCH_ENC, BENCH_DTYPE, BENCH_SECONDS), or with BENCH_MODE=engine
+for ``run_engine_benchmark`` (the SlotEngine draining staggered streams:
+BENCH_BATCH slots, BENCH_STREAMS, BENCH_CHUNK, BENCH_KV, BENCH_ENC,
+BENCH_PRESTAGED, BENCH_BUCKET, BENCH_SCHEDULE, BENCH_SECONDS). The metric
+name marks the backend (``rtf_torch_...``). What the port does not have
+yet exits non-zero naming its ROADMAP item: BENCH_MODE=spec and
+BENCH_DRAFT (item 14), BENCH_BEAM in engine mode (item 13).
 """
 
 from __future__ import annotations
@@ -127,8 +131,9 @@ def make_serving_step(model: WhisperModel, batch: int, decode_tokens: int, kv_dt
 
 
 WINDOW_SEC = 30.0
-_WAITS_FOR = {"engine": "parallel/engine.py (the SlotEngine)",
-              "spec": "parallel/spec_engine.py and decoding/speculative.py"}
+_WAITS_FOR = {"spec": "parallel/spec_engine.py and decoding/speculative.py (ROADMAP item 14)",
+              "draft": "parallel/spec_engine.py (ROADMAP item 14)",
+              "beam": "parallel/beam_engine.py (ROADMAP item 13)"}
 
 
 def card_line(device: torch.device) -> Optional[str]:
@@ -157,7 +162,9 @@ def kernel_launches() -> dict:
             "k1b": flash_attention.int8_launches, "k1c_bwd": flash_sdpa.bwd_launches,
             "act": fused_quant.act_quant.launches, "ln": fused_quant.ln_quant.launches,
             "gelu": fused_quant.gelu_quant.launches, "k4": cross_attention_int8.launches,
-            "k4_self": cross_attention_int8.masked_launches, "k5": cached_attention.launches,
+            "k4_self": cross_attention_int8.masked_launches,
+            "k4_ragged": cross_attention_int8.ragged_launches, "k5": cached_attention.launches,
+            "k5_ragged": cached_attention.ragged_launches,
             "k6": beam_gather.permute_rows_multi.launches,
             "k7": beam_gather.cow_copy_rows.launches}
 
@@ -268,14 +275,136 @@ def run_benchmark(
     }
 
 
+def engine_streams(n_streams: int) -> list:
+    """The engine bench's streams: int16 PCM of 24, 27 and 30 s in turn
+    (ragged finishes force refills mid-decode), from ``default_rng(0)``, as
+    the JAX package's engine bench draws them."""
+    rng = np.random.default_rng(0)
+    secs = [24.0, 27.0, 30.0]
+    return [np.clip(rng.standard_normal(int(16000 * secs[i % 3])) * 0.1 * 32768,
+                    -32768, 32767).astype(np.int16) for i in range(n_streams)]
+
+
+def run_engine_benchmark(
+    model_name: str = "large-v3",
+    n_slots: int = 64,
+    n_streams: Optional[int] = None,
+    chunk_steps: int = 32,
+    quantize: bool = True,
+    max_new_tokens: int = 64,
+    seconds: int = 120,
+    prestage: bool = False,
+    enc_int8: bool = False,
+    max_bucket: Optional[int] = None,
+    schedule: Optional[str] = None,
+    device: torch.device | str = "cuda",
+) -> dict:
+    """Continuous-batching serving throughput: a ``SlotEngine`` of
+    ``n_slots`` (random ``model_name`` weights from seed 0, bf16; with
+    ``quantize`` int8 decoder weights and int8 pools) drains ``n_streams``
+    (default 2 × slots) streams of ``engine_streams``: one warm-up wave,
+    then timed waves until ``seconds`` are spent (at least one). RTF =
+    audio seconds drained per wall second. ``prestage`` puts the PCM on the
+    card before the timed run; ``enc_int8`` runs the admission encodes
+    W8A8; ``max_bucket`` caps the admission buckets. The engine's memory
+    guard runs at its construction. Returns bench.py's keys."""
+    from ..parallel.engine import SlotEngine
+    from ..decoding.task import DecodingOptions
+
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise WhisperError("run_engine_benchmark runs on a CUDA card and none is available; "
+                           "pass device='cpu' to run on the CPU")
+    on_card = device.type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(device)
+    cfg = PRESETS[model_name]
+    model = random_model(cfg, seed=0, dtype=torch.bfloat16, device=device, on_device=True)
+    model = model.with_params(prepare_serving_params(
+        model.params, "int8" if quantize else "bfloat16", "int8" if enc_int8 else "bfloat16"))
+    n_streams = n_streams or 2 * n_slots
+    audios = engine_streams(n_streams)
+    total_audio = sum(len(a) for a in audios) / 16000.0
+    if prestage:
+        audios = [torch.from_numpy(a).to(device) for a in audios]
+        _sync(device)
+    buckets = None
+    if max_bucket:
+        buckets = tuple(b for b in (32, 16, 8, 4, 2, 1) if b <= max_bucket)
+    engine = SlotEngine(model, n_slots=n_slots, chunk_steps=chunk_steps,
+                        options=DecodingOptions(without_timestamps=False),
+                        max_new_tokens=max_new_tokens, quantize=quantize,
+                        admit_buckets=buckets,
+                        **({"schedule": schedule} if schedule else {}))
+    # Warm-up: a full first wave plus a refill wave, then a fresh pool.
+    t0 = time.perf_counter()
+    engine.transcribe_many(audios[: min(len(audios), n_slots + 16)])
+    _sync(device)
+    warmup = time.perf_counter() - t0
+    engine._state = None
+    engine._cross_pool_k = engine._cross_pool_v = None
+
+    launches0 = kernel_launches()
+    waves = 0
+    audio_done = 0.0
+    t0 = time.perf_counter()
+    deadline = t0 + seconds
+    while True:
+        results = engine.transcribe_many(audios)
+        waves += 1
+        audio_done += total_audio
+        if time.perf_counter() >= deadline:
+            break
+    wall = time.perf_counter() - t0
+    launches = {k: v - launches0[k] for k, v in kernel_launches().items()}
+    return {
+        "metric": f"rtf_torch_{cfg.model_type}_engine_s{n_slots}_q{n_streams}"
+        + ("_int8" if quantize else "") + ("_eint8" if enc_int8 else "")
+        + ("_prestaged" if prestage else ""),
+        "value": audio_done / wall,
+        "unit": "audio_sec/sec/chip",
+        "vs_baseline": None,  # no baseline on the card yet
+        "detail": {
+            "model": cfg.model_type,
+            "weights": f"random (seed 0, {model_name})",
+            "n_slots": n_slots,
+            "n_streams": n_streams,
+            "chunk_steps": chunk_steps,
+            "quantize": quantize,
+            "enc_int8": enc_int8,
+            "prestage": prestage,
+            "schedule": engine.schedule,
+            "admit_buckets": list(engine._ADMIT_BUCKETS),
+            "max_new_tokens": engine.max_new,
+            "wall_s": wall,
+            "warmup_s": warmup,
+            "waves": waves,
+            "n_results": sum(r is not None for r in results),
+            "tokens_last_wave": sum(len(r.tokens) for r in results if r is not None),
+            "stats": dict(engine.stats),  # the last timed wave's
+            "device": str(device),
+            "card": torch.cuda.get_device_name(device) if on_card else None,
+            "nvidia_smi": card_line(device),
+            "torch": torch.__version__,
+            "peak_allocated_bytes": torch.cuda.max_memory_allocated(device) if on_card else None,
+            "peak_reserved_bytes": torch.cuda.max_memory_reserved(device) if on_card else None,
+            "hbm_estimate": engine.hbm_estimate,
+            "kernel_launches": launches,  # over the timed waves
+        },
+    }
+
+
 def bench_config_from_env(env: Mapping[str, str]) -> dict:
     """run_benchmark's keyword arguments from bench.py's knobs for its
     default mode: BENCH_MODEL (large-v3), BENCH_BATCH (64, or 48 with a
     beam), BENCH_BEAM, BENCH_KV, BENCH_WQ, BENCH_ENC (int8 each),
-    BENCH_DTYPE (bfloat16) and BENCH_SECONDS (120). BENCH_MODE=engine or
-    spec raises WhisperError naming the module it waits for."""
+    BENCH_DTYPE (bfloat16) and BENCH_SECONDS (120). BENCH_MODE=engine is
+    ``engine_config_from_env``'s; BENCH_MODE=spec raises WhisperError naming
+    the modules it waits for."""
     mode = env.get("BENCH_MODE")
     if mode:
+        if mode == "engine":
+            raise WhisperError("BENCH_MODE=engine is configured by engine_config_from_env")
         if mode not in _WAITS_FOR:
             raise WhisperError(f"unknown BENCH_MODE={mode!r}")
         raise WhisperError(f"BENCH_MODE={mode} needs {_WAITS_FOR[mode]}, which the port "
@@ -293,6 +422,33 @@ def bench_config_from_env(env: Mapping[str, str]) -> dict:
     )
 
 
+def engine_config_from_env(env: Mapping[str, str]) -> dict:
+    """run_engine_benchmark's keyword arguments from bench.py's knobs for
+    BENCH_MODE=engine, with its greedy engine defaults: BENCH_MODEL
+    (large-v3), BENCH_BATCH slots (64), BENCH_STREAMS (2 × slots),
+    BENCH_CHUNK (32), BENCH_KV (int8: int8 pools and decoder weights),
+    BENCH_ENC (int8 for W8A8 encodes; off by default), BENCH_PRESTAGED=1,
+    BENCH_BUCKET, BENCH_SCHEDULE, BENCH_SECONDS (120). BENCH_BEAM and
+    BENCH_DRAFT raise WhisperError naming the ROADMAP item that ports
+    them."""
+    for knob, what in (("BENCH_BEAM", "beam"), ("BENCH_DRAFT", "draft")):
+        if env.get(knob):
+            raise WhisperError(f"BENCH_MODE=engine with {knob} needs {_WAITS_FOR[what]}, "
+                               "which the port does not have yet")
+    return dict(
+        model_name=env.get("BENCH_MODEL", "large-v3"),
+        n_slots=int(env.get("BENCH_BATCH", "64")),
+        n_streams=int(env["BENCH_STREAMS"]) if env.get("BENCH_STREAMS") else None,
+        chunk_steps=int(env.get("BENCH_CHUNK", "32")),
+        quantize=env.get("BENCH_KV", "int8") == "int8",
+        seconds=int(env.get("BENCH_SECONDS", "120")),
+        prestage=env.get("BENCH_PRESTAGED", "") == "1",
+        enc_int8=env.get("BENCH_ENC", "") == "int8",
+        max_bucket=int(env["BENCH_BUCKET"]) if env.get("BENCH_BUCKET") else None,
+        schedule=env.get("BENCH_SCHEDULE") or None,
+    )
+
+
 def main(argv=None) -> int:
     """Print one JSON line: the benchmark's result, or on a refused
     configuration (WhisperError) a line with value 0 and the error, and
@@ -304,7 +460,11 @@ def main(argv=None) -> int:
                         help="torch device to run on (default: the CUDA card)")
     args = parser.parse_args(argv)
     try:
-        result = run_benchmark(device=args.device, **bench_config_from_env(os.environ))
+        if os.environ.get("BENCH_MODE") == "engine":
+            result = run_engine_benchmark(device=args.device,
+                                          **engine_config_from_env(os.environ))
+        else:
+            result = run_benchmark(device=args.device, **bench_config_from_env(os.environ))
     except WhisperError as e:
         print(json.dumps({"metric": "rtf_torch_refused", "value": 0.0,
                           "unit": "audio_sec/sec/chip", "vs_baseline": None,

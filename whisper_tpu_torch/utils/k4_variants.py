@@ -134,7 +134,7 @@ def main() -> None:
                 def call(fn=fn, out=out):
                     err = fn(q.data_ptr(), k8.data_ptr(), ks.data_ptr(), v8.data_ptr(),
                              vs.data_ptr(), out.data_ptr(), bsz, 20, tq, 1500, k8.stride(0),
-                             ks.stride(0), -1, k4._rows_per_block(tq, 1500), plan.ranks,
+                             ks.stride(0), -1, None, k4._rows_per_block(tq, 1500), plan.ranks,
                              plan.chunk, int(dtype == torch.bfloat16),
                              torch.cuda.current_stream().cuda_stream)
                     if err:
