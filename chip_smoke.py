@@ -54,7 +54,9 @@ then exits non-zero without the final "ok" line:
    graph), permute_rows_multi (K6, on
    the 160-row int8 cache's four leaves with repeated rows, and on a bf16
    K/V pair) and cow_copy_rows (K7, the int8 cache with 1, 8, 32 and 96
-   forked rows from cow_assign, and phase 18's 240-row cache with 144)
+   forked rows from cow_assign, phase 18's 240-row cache with 144, and
+   phase 25's 165-row pool of 104 positions at its typical step and in a
+   storm of 132; phase 24's bf16 pool of 85 rows of 328 positions)
    against their plain versions, timed in turns, with
    the time of one PyTorch library call for the same function beside them.
 10. beam parity: phase 4's checkpoint, beam 3, both decode_full routes on
@@ -174,14 +176,60 @@ then exits non-zero without the final "ok" line:
    construction at these defaults: the pool has 65 rows and the prompt
    bucket 32 tokens, and the bench's stats must show that every admission
    bucket was a full 16 (staged buckets × 16 = 128 streams).
-Phases 16, 17, 19, 21 and 22 run after phase 12, while phase 5's model is
-loaded; phases 18 and 23 after them, phase 20 last.
+24. beam engine parity: phase 4's checkpoint through the BeamSlotEngine
+   (parallel/beam_engine.py) on the CPU and on the card: beam 3, six streams
+   of 2-12 s on 2 groups (groups reused, a partial bucket), on the card
+   under all four schedules (the CPU runs the pipelined one; the CPU tests
+   cover the rest), float and int8, each stream's tokens equal to the
+   device beam's (beam_decode_device on the engine's model, its finalize)
+   on that device and the card's equal to the CPU's; the overlapped
+   schedule on the card makes no synchronizing CUDA call besides its
+   harvest pulls; K7 and the ragged K5 (float) or K4 (int8) must have
+   launched in the engine's runs (the device beam's references run before
+   the counts are set to 0); then beam-2 transcribe_streams on the card
+   over a 35 s and an 8 s clip gives pipeline.transcribe's segments. Then
+   the float engine at full width, as `cli serve --beam 5` loads it: phase
+   5's large-v3 bf16 model, beam 5 over 16 groups (85 rows of bf16 pools
+   of 328 positions), transcribe_streams over phase 22's four streams,
+   windows of up to 64 tokens, K1 and K5 held to their plain versions at
+   every shape the path gives them; K7 once a step and the ragged K5 once a
+   layer a step; each window's tokens beside the device beam's on that
+   window alone with the window's prompt and budget (compared, not held:
+   bf16 rounds the engine's 85-row sums apart from the device beam's 5-row
+   ones, which moves near-tied beams); then the same at f32 (large-v3
+   drawn on the card), where every window must equal the device beam's.
+25. beam engine bench: python -m whisper_tpu_torch.utils.benchmark with
+   BENCH_MODE=engine BENCH_BEAM=5 in a subprocess (large-v3 int8 at
+   bench.py's beam engine defaults: 32 groups of 5 rows and the trash group,
+   64 streams, chunks of 16, 64 tokens, BENCH_SECONDS 20): its JSON line and
+   stats, the forked rows a step (mean and most), K7 once a decode step,
+   the ragged K4 self and the K4 cross fold once a layer a step, K4 cross
+   and self once a layer at each prefill (one row a group, the greedy
+   engine's shapes), the peaks beside the guard's estimate at beam 5
+   (within PEAK_OVER_ESTIMATE); every admission bucket a full 16, which
+   keeps its shapes in K4_CASES ("beam-engine-*", "engine-*-t32") and
+   K7_CASES.
+26. server: EngineServer behind make_http_server on 127.0.0.1 (port 0):
+   phase 4's checkpoint greedy and with beam 2 answers /transcribe,
+   ?stream=1 and /v1/audio/transcriptions with the same engine's
+   transcribe_streams results; then phase 22's large-v3 bf16 float engine
+   serves phase 22's four streams as concurrent HTTP requests, whose texts
+   must be phase 22's: wall, audio seconds per wall second, latency
+   percentiles, launches. Last, the CLI as a user runs it, in subprocesses
+   on the card with phase 4's checkpoint: batch --beam 2 prints this
+   process's BeamSlotEngine's texts, and serve --beam 5 answers /healthz
+   and a POST /transcribe of an 8 s clip, then exits 0 on SIGTERM.
+Phases 16, 17, 19, 21, 22, 24 and 26 run after phase 12, while phase 5's
+model is loaded; phases 18, 23 and 25 after them, phase 20 last.
 
 The line before the last is the kernels JSON: every kernel with its
-main-path launches (K1 and K5 with phases 17, 19 and 22 added, the int8
-step's kernels with phase 18's timed steps, the beam bench's K4 and K7, the
-engines' K4 and ragged K5 and phase 20's fine-tune in rows of their own at
-their shapes, K1c with phase 15's),
+main-path launches (K1 and K5 with phases 17, 19, 22, 24, 25 and 26 added, the
+int8 step's kernels with phase 18's timed steps, the beam bench's K4 and K7,
+the engines' K4 and ragged K5, the int8 beam engine's K4 fold, prefill,
+ragged self and K7 (its storm's times beside the typical step's), the
+float beam engine's ragged K5 and K7 (phase 24's large-v3 run) and phase
+20's fine-tune in
+rows of their own at their shapes, K1c with phase 15's),
 error against its plain version, kernel, plain and
 library times (K4 cross and self and K5 also the time of one call in a CUDA
 graph, "graph_ms"), and its bound (bytes over 3.35 TB/s or operations over the
@@ -196,11 +244,16 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import http.client
+import io
 import json
 import math
 import os
+import queue
+import signal
 import subprocess
 import sys
+import threading
 import time
 import traceback
 import warnings
@@ -213,7 +266,7 @@ import torch.nn.functional as F
 
 from whisper_tpu_torch.config import (CARD_MEMORY_FRACTION, PEAK_OVER_ESTIMATE, PRESETS,
                                       SAMPLE_RATE, WhisperConfig, check_serving_hbm)
-from whisper_tpu_torch.decoding.device_beam import cow_assign
+from whisper_tpu_torch.decoding.device_beam import beam_decode_device, cow_assign
 from whisper_tpu_torch.decoding.device_loop import decode_segment_device
 from whisper_tpu_torch.decoding.sequence import BeamSearchDecoder
 from whisper_tpu_torch.decoding.task import DecodingOptions, decode_full
@@ -221,7 +274,7 @@ from whisper_tpu_torch.frontend.mel import (frame_count, log_mel_spectrogram, me
                                             mel_window)
 from whisper_tpu_torch.io.ggml import tensor_schema, write_ggml
 from whisper_tpu_torch.io.vocab import make_vocab
-from whisper_tpu_torch.io.wav import load_wav, write_wav
+from whisper_tpu_torch.io.wav import load_wav, load_wav_bytes, write_wav
 from whisper_tpu_torch.kernels import beam_gather, build
 from whisper_tpu_torch.kernels import fused_quant
 from whisper_tpu_torch.kernels.cross_attention_int8 import (cross_attention_int8,
@@ -245,7 +298,9 @@ from whisper_tpu_torch.model.load import load_model, random_model
 from whisper_tpu_torch.model.params import params_to_ggml
 from whisper_tpu_torch.model.quant import (QuantKV, init_quant_cache, qk_logits, quantize_act,
                                            quantize_decoder_weights, quantize_kv)
+from whisper_tpu_torch.parallel.beam_engine import BeamSlotEngine
 from whisper_tpu_torch.parallel.engine import SCHEDULES, SlotEngine
+from whisper_tpu_torch.parallel.server import EngineServer, make_http_server
 from whisper_tpu_torch.parallel.serving import BatchTranscriber
 from whisper_tpu_torch.pipeline.chunked import transcribe_chunked
 from whisper_tpu_torch.pipeline.streaming import StreamingTranscriber
@@ -255,7 +310,8 @@ from whisper_tpu_torch.training import finetune as finetune_module
 from whisper_tpu_torch.training.train import (init_train_state, leaves, make_optimizer,
                                               make_train_step)
 from whisper_tpu_torch.utils import synth
-from whisper_tpu_torch.utils.benchmark import (bench_config_from_env, kernel_launches,
+from whisper_tpu_torch.utils.benchmark import (bench_config_from_env, engine_config_from_env,
+                                               kernel_launches,
                                                make_serving_step, serving_ctx,
                                                prepare_serving_params)
 from whisper_tpu_torch.utils.wer import wer
@@ -453,9 +509,14 @@ def case_n_past(spec, bsz: int, c: int):
     """A kernel case's n_past: None (cross-attention), an int, "spread" (a
     (B,) int32 tensor on the card with row b at round(b (C - 1) / (B - 1)):
     every row at its own position, 0 and C - 1 among them, as the engine's
-    slots) or ("rows", v) (every row at v, as such a tensor)."""
+    slots), ("groups", k) ("spread" over the B / k groups, the k rows of a
+    group at its one position, as the beam engine's groups) or ("rows", v)
+    (every row at v, as such a tensor)."""
     if spec == "spread":
         return torch.linspace(0, c - 1, bsz, device="cuda").round().to(torch.int32)
+    if isinstance(spec, tuple) and spec[0] == "groups":
+        k = spec[1]
+        return case_n_past("spread", bsz // k, c).repeat_interleave(k)
     if isinstance(spec, tuple):
         return torch.full((bsz,), spec[1], dtype=torch.int32, device="cuda")
     return spec
@@ -761,6 +822,17 @@ FLOAT_ENGINE_SLOTS, FLOAT_ENGINE_TOKENS = 16, 64
 FLOAT_ENGINE_CTX = 256 + FLOAT_ENGINE_TOKENS + 8
 # phase 18's beam bench: bench.py's batch with a beam (48 windows x 5 beams = 240 rows)
 BENCH_BEAM_GROUPS = bench_config_from_env({"BENCH_BEAM": str(BEAM)})["batch"]
+# phase 25's beam engine bench (bench.py's beam engine defaults): 32 groups
+# and the trash group of 5 rows (165), the pool of ENGINE_CTX positions,
+# admission buckets of ENGINE_BUCKET windows prefilled at one row a group
+BEAM_ENGINE_GROUPS = engine_config_from_env({"BENCH_BEAM": str(BEAM)})["n_slots"] + 1
+BEAM_ENGINE_FORKS = 73  # K7's typical step there: phase 25 reads 73.07 forked rows a step
+# phase 24's float beam engine at full width: phase 22's slots as groups of
+# BEAM rows and the trash group (85 rows), phase 22's pool; K7's typical step
+FLOAT_BEAM_GROUPS = FLOAT_ENGINE_SLOTS + 1
+# phase 24's runs fork 3.85-6.00 rows a step (with the checkpoint's weights
+# 6.00 at bf16 and 4.38 at f32; 3.85-4.48 with other random bf16 weights)
+FLOAT_BEAM_FORKS = 4
 K4_CASES = [  # (name, batch, heads, tq, keys, n_past, dtype); n_past None: cross
     ("cross", 64, 20, 1, 1500, None, torch.bfloat16),  # decode step, large-v3 b64
     ("cross-t3", 64, 20, 3, 1500, None, torch.bfloat16),  # prefill of the 3-token prompt
@@ -801,9 +873,16 @@ K4_CASES = [  # (name, batch, heads, tq, keys, n_past, dtype); n_past None: cros
     ("engine-self-f32", ENGINE_SLOTS + 1, 20, 1, ENGINE_CTX, "spread", torch.float32),
     ("engine-self-c1500", 8, 20, 1, 1500, "spread", torch.bfloat16),
     ("engine-self-rows", ENGINE_SLOTS + 1, 20, 1, ENGINE_CTX, ("rows", 40), torch.bfloat16),
+    # the beam engine (phase 25): the cross fold each step (5 query rows a
+    # group over its shared memory) and the ragged self over the pool with
+    # each group's 5 rows at one n_past; its admission prefill (one row a
+    # group) runs at engine-cross-t32 and engine-self-t32
+    ("beam-engine-cross", BEAM_ENGINE_GROUPS, 20, BEAM, 1500, None, torch.bfloat16),
+    ("beam-engine-self", BEAM_ENGINE_GROUPS * BEAM, 20, 1, ENGINE_CTX, ("groups", BEAM),
+     torch.bfloat16),
 ]
 # also timed in a CUDA graph: device time without the wrapper
-K4_GRAPHED = ("cross", "self", "engine-self")
+K4_GRAPHED = ("cross", "self", "engine-self", "beam-engine-cross", "beam-engine-self")
 
 
 def _fq_calls(mode: str, x, w, b):
@@ -994,7 +1073,7 @@ def phase_int8_kernels(card: str) -> dict:
         if not ok:
             raise AssertionError(f"cross_attention_int8 {name} disagrees with its plain version: "
                                  f"max_abs_err {err}")
-        if isinstance(spec, tuple):
+        if isinstance(spec, tuple) and spec[0] == "rows":
             same = torch.equal(out, cross_attention_int8(*args[:5], spec[1]))
             log(f"[int8-kernel] cross_attention_int8 {name}: every row at n_past {spec[1]} as a "
                 f"tensor {'equals' if same else 'DIFFERS FROM'} the int call, bit for bit")
@@ -1192,6 +1271,10 @@ K5_CASES = [  # (name, batch, heads, tq, ctx, n_past, dtype): layer 2 of a (B, 4
     ("engine-448", FLOAT_ENGINE_SLOTS + 1, 20, 1, 448, "spread", torch.bfloat16),
     ("engine-448-f32", FLOAT_ENGINE_SLOTS + 1, 20, 1, 448, "spread", torch.float32),
     ("engine-rows", FLOAT_ENGINE_SLOTS + 1, 20, 1, 104, ("rows", 40), torch.bfloat16),
+    # phase 24's float beam engine at full width: 85 rows of phase 22's
+    # pool, each group's 5 rows at one n_past read from device memory
+    ("beam-engine", FLOAT_BEAM_GROUPS * BEAM, 20, 1, FLOAT_ENGINE_CTX, ("groups", BEAM),
+     torch.bfloat16),
 ]
 
 
@@ -1243,7 +1326,7 @@ def _k5_cases(card: str, gen, rows: dict) -> None:
         if not ok:
             raise AssertionError(f"cached_attention {name} disagrees with its plain version: "
                                  f"max_abs_err {err}")
-        if isinstance(spec, tuple):
+        if isinstance(spec, tuple) and spec[0] == "rows":
             same = torch.equal(out, cached_attention(q, k, v, spec[1]))
             log(f"[decode-kernel] cached_attention {name}: every row at n_past {spec[1]} as a "
                 f"tensor {'equals' if same else 'DIFFERS FROM'} the int call, bit for bit")
@@ -1304,17 +1387,41 @@ def _fork_src(n_forks: int, groups: int = BEAM_GROUPS) -> torch.Tensor:
     return (copy_src + torch.arange(groups, device="cuda")[:, None] * BEAM).reshape(-1)
 
 
-K7_CASES = [  # (groups of BEAM rows, forked rows); 96: phase 11's reading, ~96.5 a step
-    (BEAM_GROUPS, 1), (BEAM_GROUPS, 8), (BEAM_GROUPS, 32), (BEAM_GROUPS, 96),
-    (BENCH_BEAM_GROUPS, 144),  # phase 18's beam bench, 240 rows at phase 11's share
+K7_CASES = [  # (groups of BEAM rows, forked rows, positions, cache dtype); 96: phase 11's reading
+    (BEAM_GROUPS, 1, 75, torch.int8), (BEAM_GROUPS, 8, 75, torch.int8),
+    (BEAM_GROUPS, 32, 75, torch.int8), (BEAM_GROUPS, 96, 75, torch.int8),
+    # phase 18's beam bench, 240 rows at phase 11's share
+    (BENCH_BEAM_GROUPS, 144, 75, torch.int8),
+    # phase 25's beam engine pool: 165 rows of ENGINE_CTX positions, at
+    # BEAM_ENGINE_FORKS (the typical step) and in a storm (every group
+    # forking 4 of its 5 rows)
+    (BEAM_ENGINE_GROUPS, BEAM_ENGINE_FORKS, ENGINE_CTX, torch.int8),
+    (BEAM_ENGINE_GROUPS, BEAM_ENGINE_GROUPS * (BEAM - 1), ENGINE_CTX, torch.int8),
+    # phase 24's float beam engine: the bf16 pool of 85 rows, K and V
+    (FLOAT_BEAM_GROUPS, FLOAT_BEAM_FORKS, FLOAT_ENGINE_CTX, torch.bfloat16),
 ]
 
 
+def _k7_name(n_forks: int, ctx: int, dtype=torch.int8) -> str:
+    return (f"k7-{n_forks}" + ("" if ctx == 75 else f"-c{ctx}")
+            + ("" if dtype == torch.int8 else f"-{str(dtype)[6:]}"))
+
+
+def _beam_cache(gen, rows: int, ctx: int, dtype):
+    """A self cache of ``rows`` rows as cache_leaves gives it to K7: the
+    int8 one's four leaves, or a float one's K and V (rows, 32, 20, 64,
+    ctx)."""
+    if dtype == torch.int8:
+        return _int8_beam_cache(gen, rows, ctx)
+    return [torch.randn((rows, 32, 20, 64, ctx), device="cuda", generator=gen).to(dtype)
+            for _ in range(2)]
+
+
 def _k7_cases(card: str, gen, rows: dict) -> None:
-    for groups in dict.fromkeys(g for g, _ in K7_CASES):
-        leaves = _int8_beam_cache(gen, groups * BEAM, 75)
+    for groups, ctx, dtype in dict.fromkeys((g, c, d) for g, _, c, d in K7_CASES):
+        leaves = _beam_cache(gen, groups * BEAM, ctx, dtype)
         row_bytes = sum(a[0].numel() * a.element_size() for a in leaves)
-        for n_forks in (n for g, n in K7_CASES if g == groups):
+        for n_forks in (n for g, n, c, d in K7_CASES if (g, c, d) == (groups, ctx, dtype)):
             src = _fork_src(n_forks, groups)
             ar = torch.arange(src.numel(), device="cuda")
             if int((src != ar).sum()) != n_forks:
@@ -1337,8 +1444,9 @@ def _k7_cases(card: str, gen, rows: dict) -> None:
             # each forked row written once, each distinct source row read once
             moved = (n_forks + srcs.unique().numel()) * row_bytes + nbytes(src)
             b_ms, by = bound_ms(moved, 0, torch.bfloat16)
-            log(f"[decode-kernel] cow_copy_rows int8 cache ({groups * BEAM} rows, 4 leaves, "
-                f"{row_bytes / 1e6:.2f} MB a row), {n_forks} forked rows: "
+            log(f"[decode-kernel] cow_copy_rows {str(dtype)[6:]} cache ({groups * BEAM} rows of "
+                f"{ctx} positions, {len(leaves)} leaves, {row_bytes / 1e6:.2f} MB a row), "
+                f"{n_forks} forked rows: "
                 f"{'bit-exact' if same else 'DIFFERS'}, identity rows "
                 f"{'untouched' if untouched else 'CHANGED'}; kernel {ms:.4f} ms ({t[1]:.4f}, "
                 f"{t[2]:.4f}), plain {plain_ms:.4f} ms ({t[0]:.4f}, {t[3]:.4f}), index_copy_ "
@@ -1347,8 +1455,9 @@ def _k7_cases(card: str, gen, rows: dict) -> None:
             if not (same and untouched):
                 raise AssertionError(f"cow_copy_rows with {n_forks} forks differs from its "
                                      f"plain version or touched an identity row")
-            rows[f"k7-{n_forks}"] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
-                                     "bound_ms": b_ms, "bound_by": by, "library_ms": lib_ms}
+            rows[_k7_name(n_forks, ctx, dtype)] = {
+                "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                "bound_by": by, "library_ms": lib_ms, "graph_ms": g_ms}
             del before, want
         del leaves
     torch.cuda.empty_cache()
@@ -2537,13 +2646,13 @@ def phase_engine_parity(card: str) -> None:
             f"and the card")
 
 
-def phase_engine_float(card: str, model) -> dict:
+def phase_engine_float(card: str, model) -> tuple:
     """The float engine on phase 5's large-v3 bf16 model: transcribe_streams
     with FLOAT_ENGINE_SLOTS slots (bf16 pools; K5 with each slot's n_past in
     device memory) over phase 17's WAV and three cuts of it, language ID on
     each, windows of up to FLOAT_ENGINE_TOKENS tokens at t=0; twice, run 1
     holding K1 and K5 to their plain versions at every shape the path gives
-    them. Returns run 2's launches."""
+    them. Returns run 2's launches, its streams and its results."""
     cfg = model.config
     _, wav = _wav_clip(WF_SECONDS, seed=64)
     sr = SAMPLE_RATE
@@ -2599,7 +2708,7 @@ def phase_engine_float(card: str, model) -> dict:
                     raise AssertionError(f"bad segment {seg}")
     del eng
     torch.cuda.empty_cache()
-    return n
+    return n, streams, res
 
 
 def phase_engine_bench(card: str) -> dict:
@@ -2650,6 +2759,503 @@ def phase_engine_bench(card: str) -> dict:
     return n
 
 
+BEAM_PARITY_SECONDS = (2, 4, 6, 8, 10, 12)  # phase 24: six streams on 2 groups of 3 rows
+BEAM_PARITY_K = 3
+
+
+def _beam_engine_reference(eng, audio) -> list:
+    """One stream alone through the device beam (beam_decode_device) on the
+    beam engine's own model, with its cache kind, context, prompt, rule masks
+    and finalize: the tokens the engine must give that stream."""
+    model, k = eng.model, eng.beam_size
+    with torch.inference_mode():
+        a = torch.from_numpy(np.asarray(audio, np.float32)).to(eng.device)
+        mel = log_mel_spectrogram(a, model.filters, frame_count(len(audio)))
+        enc = encode(model.encoder, mel_window(mel, 0, 2 * model.config.n_audio_ctx)[None],
+                     quantize_kv=eng.quantize)
+        cache = eng._fresh_cache(k, getattr(enc.cross_k, "data", enc.cross_k).dtype)
+        out = beam_decode_device(
+            model.decoder, eng._padded_init.expand(k, -1), eng.init_len, eng.sot_index, cache,
+            enc.cross_k, enc.cross_v, eng.sup_mask, eng.blank_mask, beam_size=k,
+            sample_len=eng.max_new, use_timestamps=not eng.options.without_timestamps,
+            max_initial_index=eng.max_initial_index)
+    toks, lp, fin_t, fin_s, fin_l, fin_c, steps, nosp = out
+    host = [t.cpu().numpy() for t in (toks, lp, fin_t, fin_s, fin_l, fin_c, nosp)]
+    return eng._finalize_group(0, np.array([steps]), *host).tokens
+
+
+def phase_beam_engine_parity(card: str) -> None:
+    """The BeamSlotEngine on phase 4's tiny f32 checkpoint, on the CPU and on
+    the card: six streams of different lengths on 2 groups of 3 rows (groups
+    reused, a partial bucket), float and int8 (int8 decoder weights and
+    pools: K4 at both sites), each stream's tokens the device beam's on that
+    device and the card's equal to the CPU's; on the card under every
+    schedule (the CPU tests cover the CPU's), the overlapped one making no
+    synchronizing CUDA call besides its harvest pulls, then beam-2
+    transcribe_streams over a 35 s and an 8 s clip giving
+    pipeline.transcribe's segments (device beam route). The references run
+    before the launch counts are set to 0."""
+    cfg, path = tiny_checkpoint()
+    audios = [synthetic_audio(SAMPLE_RATE * sec, seed=60 + sec) for sec in BEAM_PARITY_SECONDS]
+    opts = DecodingOptions(beam_size=BEAM_PARITY_K, sample_len=24)
+    got_by = {}
+    for dev in ("cpu", "cuda"):
+        base = load_model(str(path), device=dev, dtype=torch.float32)
+        for quantize in (False, True):
+            model = (base.with_params(quantize_decoder_weights(base.params)) if quantize
+                     else base)
+            mode = "int8" if quantize else "float"
+            # the device beam's tokens first: its own K7 and K5 (or K4)
+            # launches must not count as the engine's
+            ref = [_beam_engine_reference(BeamSlotEngine(model, n_slots=2, options=opts,
+                                                         quantize=quantize), a)
+                   for a in audios]
+            _zero_launches()
+            for sched in SCHEDULES if dev == "cuda" else ("pipelined",):
+                eng = BeamSlotEngine(model, n_slots=2, options=opts, chunk_steps=4,
+                                     quantize=quantize, schedule=sched)
+                watch = dev == "cuda" and sched == "overlapped"
+                t0 = time.perf_counter()
+                with host_waits(watch) as waits:
+                    got = [r.tokens for r in eng.transcribe_many(audios)]
+                wall = time.perf_counter() - t0
+                if watch:
+                    log(f"[beam-engine-parity] {dev} {mode} {sched}: {len(waits)} synchronizing "
+                        f"CUDA calls besides the harvest pulls{': ' if waits else ''}"
+                        f"{', '.join(waits)}")
+                    if waits:
+                        raise AssertionError(f"the overlapped beam engine waited on the card "
+                                             f"outside its harvest pulls at {waits}")
+                forks = eng.fork_stats()
+                log(f"[beam-engine-parity] {dev} {mode} {sched}: {len(audios)} streams on 2 groups "
+                    f"of {BEAM_PARITY_K}, {sum(map(len, got))} tokens in {wall * 1e3:.1f} ms, "
+                    f"{forks['steps']} steps, {forks['forked_rows']} forked rows (at most "
+                    f"{forks['max_forked_rows']} in a step of {forks['rows']} rows), stats "
+                    f"{ {k: round(v, 4) if isinstance(v, float) else v for k, v in eng.stats.items()} }"
+                    f": {'equal to' if got == ref else 'NOT EQUAL TO'} the device beam's tokens")
+                if got != ref:
+                    i = next(i for i, (g, r) in enumerate(zip(got, ref)) if g != r)
+                    raise AssertionError(f"beam engine {dev} {mode} {sched}: stream {i} parts "
+                                         f"from the device beam at token "
+                                         f"{_first_divergence(got[i], ref[i])}")
+                got_by.setdefault((dev, mode), got)
+            n = _read_launches()
+            ragged = n["k4_ragged"] if quantize else n["k5_ragged"]
+            log(f"[beam-engine-parity] {dev} {mode}: the engine's launches {n}")
+            if dev == "cuda" and (ragged == 0 or n["k7"] == 0):
+                raise AssertionError(f"the {mode} beam engine on the card launched no ragged "
+                                     f"kernel or no K7: {n}")
+    topts = TranscribeOptions(temperature=0.0, beam_size=2, condition_on_previous_text=True,
+                              use_device_loop=True)
+    longs = [synthetic_audio(SAMPLE_RATE * 35, seed=1), synthetic_audio(SAMPLE_RATE * 8, seed=3)]
+    eng = BeamSlotEngine(base, n_slots=2, chunk_steps=8, options=DecodingOptions(beam_size=2))
+    got = eng.transcribe_streams(longs, topts)
+    for i, (g, a) in enumerate(zip(got, longs)):
+        _same_segments(f"beam engine streams stream {i}", transcribe(base, a, topts), g)
+    log(f"[beam-engine-parity] cuda transcribe_streams, beam 2: 35 s and 8 s clips, "
+        f"{eng.stats['windows']} windows, {sum(len(g['segments']) for g in got)} segments, "
+        f"each the offline transcribe's (tokens, seek, t0, t1); {card}")
+    for mode in ("float", "int8"):
+        same = sum(c == g for c, g in zip(got_by[("cpu", mode)], got_by[("cuda", mode)]))
+        log(f"[beam-engine-parity] {mode}: {same} of {len(audios)} streams token-identical on "
+            f"the CPU and the card")
+        if same != len(audios):
+            raise AssertionError(f"the {mode} beam engine's tokens differ between the CPU and "
+                                 f"the card")
+
+
+def _float_beam_run(card: str, model, streams, tag: str):
+    """One float BeamSlotEngine run at full width (see
+    phase_beam_engine_float) under checking_kernels; each window's tokens
+    beside the device beam's (decode_full on the device loop) on that window
+    alone, with the window's prompt and budget. Returns (launches, fork
+    stats, windows, windows token-identical, [(stream, seek, parting token,
+    engine's avg_logprob, the device beam's)] of the others); the
+    references run after the launches are read."""
+    cfg = model.config
+    L = cfg.n_text_layer
+    topts = TranscribeOptions(temperature=0.0, beam_size=BEAM)
+    eng = BeamSlotEngine(model, n_slots=FLOAT_ENGINE_SLOTS, chunk_steps=16,
+                         options=DecodingOptions(beam_size=BEAM),
+                         max_new_tokens=FLOAT_ENGINE_TOKENS)
+    windows = []  # (stream, seek, its DecodingOptions, the engine's result)
+    real_advance = eng._advance_stream
+
+    def advance_spy(s, st, pulled, topts_, temps):
+        windows.append((st, st["seek"], eng._window_options(st, topts_, 0.0),
+                        eng._stream_result(s, pulled)))
+        return real_advance(s, st, pulled, topts_, temps)
+
+    eng._advance_stream = advance_spy
+    checked = {}
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    with checking_kernels(checked):
+        t0 = time.perf_counter()
+        res = eng.transcribe_streams(streams, topts)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    n = _read_launches()
+    forks, st = eng.fork_stats(), eng.stats
+    seconds = sum(len(a) for a in streams) / SAMPLE_RATE
+    log(f"[beam-engine-float] {tag}: large-v3 {str(model.dtype)[6:]}, beam {BEAM}, "
+        f"{len(streams)} streams ({seconds:.1f} s of audio), {FLOAT_ENGINE_SLOTS} groups "
+        f"({forks['rows']} rows), pool of {eng.pool_ctx} positions, windows of up to "
+        f"{FLOAT_ENGINE_TOKENS} tokens at t=0, kernels checked: {wall * 1e3:.1f} ms; "
+        f"{st['windows']} windows, {st['rounds']} rounds, {forks['steps']} decode steps, forked "
+        f"rows {forks['forked_rows'] / max(forks['steps'], 1):.2f} a step on average, at most "
+        f"{forks['max_forked_rows']}; {sum(len(r['segments']) for r in res)} segments; peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches {n}; {card}")
+    check_path_shapes("beam-engine-float", f"the {tag} float beam engine's path", checked)
+    if not (n["k1"] + n["k1_f32"] > 0 and n["k7"] == forks["steps"] > 0
+            and n["k5_ragged"] == L * forks["steps"] and n["k5"] > n["k5_ragged"]
+            and (n["k5"] - n["k5_ragged"]) % L == 0 and forks["rows"] == FLOAT_BEAM_GROUPS * BEAM):
+        raise AssertionError(f"the {tag} float beam engine's launches {n} over "
+                             f"{forks['steps']} steps: K7 once a step and the ragged K5 once a "
+                             f"layer a step")
+    if st["windows"] != len(windows) or st["windows"] < 2 * len(streams) or [
+            r["duration"] for r in res] != [len(a) / SAMPLE_RATE for a in streams]:
+        raise AssertionError(f"bad streams: {st['windows']} windows, {res}")
+    for r in res:
+        for seg in r["segments"]:
+            if not (all(0 <= t < cfg.n_vocab for t in seg["tokens"])
+                    and math.isfinite(seg["avg_logprob"])
+                    and 0.0 <= seg["t0"] <= seg["t1"] <= r["duration"] + 30):
+                raise AssertionError(f"bad segment {seg}")
+    same, parted = 0, []
+    with torch.inference_mode():
+        for stream, seek, wopts, got in windows:
+            enc = model.encoder(mel_window(stream["mel"], seek, eng._n_frames)[None])
+            want = decode_full(model.decoder, model.vocab, enc.cross_k, enc.cross_v,
+                               dataclasses.replace(wopts, sample_len=FLOAT_ENGINE_TOKENS),
+                               use_device_loop=True)[0]
+            same += got.tokens == want.tokens
+            if got.tokens != want.tokens:
+                parted.append((stream["idx"], seek, _first_divergence(got.tokens, want.tokens),
+                               round(got.avg_logprob, 4), round(want.avg_logprob, 4)))
+    log(f"[beam-engine-float] {tag}: {same} of {len(windows)} windows token-identical to the "
+        f"device beam's on the window alone; the others (stream, seek, parting token, the "
+        f"engine's avg_logprob, the device beam's): {parted}")
+    del eng
+    torch.cuda.empty_cache()
+    return n, forks, len(windows), same, parted
+
+
+def phase_beam_engine_float(card: str, model, streams) -> dict:
+    """The float BeamSlotEngine at full width, as ``cli serve --beam 5``
+    loads it: phase 5's large-v3 bf16 model, beam 5 over FLOAT_ENGINE_SLOTS
+    groups (FLOAT_BEAM_GROUPS x 5 rows of pools of FLOAT_ENGINE_CTX
+    positions: K5 with each group's n_past in device memory, K7 over the
+    pool's K and V), transcribe_streams over phase 22's four streams at t=0
+    with windows of up to FLOAT_ENGINE_TOKENS tokens, holding K1 and K5 to
+    their plain versions at every shape the path gives them. Then the same
+    at f32 (large-v3 drawn on the card, seed 0), where each window's tokens
+    must equal the device beam's on that window alone. At bf16 they are
+    compared and not held: the engine's GEMMs run at 85 rows and its
+    prefill at one row a group, the device beam's at 5 and 5, and bf16
+    rounds those sums apart, which moves near-tied beams. Returns the bf16
+    run's launches."""
+    n, forks, _, _, _ = _float_beam_run(card, model, streams, "as served")
+    f32 = random_model(model.config, seed=0, dtype=torch.float32, device="cuda")
+    _, _, windows, same, parted = _float_beam_run(card, f32, streams, "f32")
+    del f32
+    torch.cuda.empty_cache()
+    if parted:
+        raise AssertionError(f"the f32 beam engine parts from the device beam in "
+                             f"{windows - same} of {windows} windows: {parted}")
+    return {**n, "forks": forks}
+
+
+def phase_beam_engine_bench(card: str) -> dict:
+    """python -m whisper_tpu_torch.utils.benchmark with BENCH_MODE=engine and
+    BENCH_BEAM=5 in a subprocess: large-v3 int8 at bench.py's beam engine
+    defaults (32 groups of 5 rows and the trash group, 64 streams of
+    24/27/30 s, chunks of 16, 64 tokens). Returns its launches over the
+    timed waves, with the step count."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+    env.update(BENCH_MODE="engine", BENCH_BEAM=str(BEAM), BENCH_SECONDS=str(ENGINE_BENCH_SECONDS))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "whisper_tpu_torch.utils.benchmark"], cwd=ROOT,
+                          env=env, capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    out = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or len(out) != 1:
+        raise AssertionError(f"beam engine bench: exit {proc.returncode}, stdout {out}, stderr "
+                             f"{proc.stderr[-3000:]}")
+    print(out[0], flush=True)
+    line = json.loads(out[0])
+    d = line["detail"]
+    n, est, forks = d["kernel_launches"], d["hbm_estimate"], d["forks"]
+    alloc, reserved = d["peak_allocated_bytes"], d["peak_reserved_bytes"]
+    layers = PRESETS["large-v3"].n_text_layer
+    prefills = (n["k4_self"] - n["k4_ragged"]) // layers
+    fold = n["k4"] - n["k4_self"] - prefills * layers
+    log(f"[beam-engine-bench] {line['metric']} = {line['value']:.3f} {line['unit']} "
+        f"({d['waves']} waves of {d['n_streams']} streams in {d['wall_s']:.3f} s after a "
+        f"{d['warmup_s']:.3f} s warm-up; {d['tokens_last_wave']} tokens in the last wave; its "
+        f"stats { {k: round(v, 4) if isinstance(v, float) else v for k, v in d['stats'].items()} }; "
+        f"{wall:.1f} s for the process); {forks['steps']} decode steps over {forks['rows']} rows: "
+        f"forked rows {forks['forked_rows'] / max(forks['steps'], 1):.2f} a step on average, at "
+        f"most {forks['max_forked_rows']}; launches over the timed waves: K4 cross fold "
+        f"{fold} at the step and {prefills * layers} at {prefills} prefills, K4 self "
+        f"{n['k4_self'] - n['k4_ragged']} at the prefills, ragged K4 self {n['k4_ragged']}, K7 "
+        f"{n['k7']}, K1 {n['k1']} (all {n}); memory guard at beam {BEAM}: estimate "
+        f"{est['total'] / 1e9:.3f} GB (budget {est['budget'] / 1e9:.3f} GB), peak allocated "
+        f"{alloc / 1e9:.3f} GB, reserved {reserved / 1e9:.3f} GB (reserved / estimate "
+        f"{reserved / est['total']:.3f}); {d['nvidia_smi']}")
+    slots = BEAM_ENGINE_GROUPS - 1
+    want = f"rtf_torch_large-v3_engine_s{slots}_q{2 * slots}_beam{BEAM}_int8"
+    if not (line["metric"] == want and line["value"] > 0 and line["vs_baseline"] is None
+            and d["waves"] >= 1 and d["n_results"] == 2 * slots and d["nvidia_smi"]
+            and d["device"].startswith("cuda") and d["torch"] == torch.__version__
+            and d["beam_size"] == BEAM and forks["rows"] == BEAM_ENGINE_GROUPS * BEAM):
+        raise AssertionError(f"beam engine bench: bad line {line}")
+    # one K7 and one ragged K4 self a layer at every decode step, the fold
+    # at every step and prefill
+    if not (n["k1"] > 0 and n["k7"] == forks["steps"] > 0
+            and n["k4_ragged"] == layers * forks["steps"] and prefills > 0
+            and fold == layers * forks["steps"]):
+        raise AssertionError(f"beam engine bench: launches {n} over {forks['steps']} steps")
+    st = d["stats"]
+    if st["staged_buckets"] * ENGINE_BUCKET != 2 * slots:
+        raise AssertionError(f"beam engine bench: {st['staged_buckets']} admission buckets for "
+                             f"{2 * slots} streams, not all of {ENGINE_BUCKET}: shapes outside "
+                             f"K4_CASES")
+    if reserved > PEAK_OVER_ESTIMATE * est["total"]:
+        raise AssertionError(f"beam engine bench: peak reserved {reserved} bytes, more than "
+                             f"PEAK_OVER_ESTIMATE ({PEAK_OVER_ESTIMATE}) times the guard's "
+                             f"estimate {est['total']}")
+    return {**n, "prefills": prefills, "fold": fold, "forks": forks}
+
+
+def _wav_bytes(samples: np.ndarray) -> bytes:
+    """16-bit WAV bytes of samples read from a 16-bit WAV (k / 32768): the
+    server decodes exactly these samples back."""
+    buf = io.BytesIO()
+    write_wav(buf, np.round(np.asarray(samples) * 32768).astype(np.int16))
+    return buf.getvalue()
+
+
+def _post(port: int, path: str, body: bytes, headers=None):
+    """(status, body bytes) of one POST to 127.0.0.1:port, bounded."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        conn.request("POST", path, body=body, headers=headers or {})
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+@contextlib.contextmanager
+def http_front(srv):
+    """make_http_server over ``srv`` on 127.0.0.1, port 0, served from a
+    thread; yields the port and shuts down on exit."""
+    httpd = make_http_server(srv, "127.0.0.1", 0)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        yield httpd.server_address[1]
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=60)
+
+
+class _GatedQueue(queue.Queue):
+    """An EngineServer's request queue that hands out nothing until ``n``
+    requests are in it (a wait of at most 600 s): the requests reach the
+    worker together, as transcribe_streams' streams do, so both admit them
+    in the same buckets. A bf16 encode is not batch-invariant: a request
+    admitted alone can part one text from its bucketed run."""
+
+    def __init__(self, n: int):
+        super().__init__()
+        self.n, self.open = n, False
+
+    def get(self, block=True, timeout=None):
+        end = time.monotonic() + 600
+        while not self.open and self.qsize() < self.n:
+            if time.monotonic() > end:
+                raise AssertionError(f"the gate saw {self.qsize()} of {self.n} requests")
+            time.sleep(0.001)
+        self.open = True
+        return super().get(block, timeout)
+
+
+def _same_result(name: str, want: dict, got: dict) -> None:
+    if got["text"] != want["text"] or [s["tokens"] for s in got["segments"]] != [
+            s["tokens"] for s in want["segments"]]:
+        raise AssertionError(f"{name}: the server's result differs from transcribe_streams'")
+
+
+def _cli_entry_points(card: str) -> None:
+    """The CLI's two engine commands on the card, as a user runs them
+    (bf16, subprocesses, phase 4's checkpoint): ``batch --beam 2`` over two
+    WAVs must print what this process's BeamSlotEngine gives on the same
+    model, options and samples; ``serve --beam 5`` must announce its port,
+    answer GET /healthz and POST /transcribe of an 8 s clip with a result of
+    the clip's duration, and exit 0 on SIGTERM. Served requests take the
+    whole temperature ladder (serve sets no thresholds), which a random
+    model fails at every rung: at large-v3 a window costs ~84 s (a 40 s
+    request took 168.6 s on an H100), so the served model here is the
+    small one; phase 24 runs the same engine at large-v3. Every wait is
+    bounded and the server is killed if it is still up."""
+    _, path = tiny_checkpoint()
+    wavs = [_wav_clip(sec, seed=300 + sec) for sec in (6, 11)]
+    cli = [sys.executable, "-m", "whisper_tpu_torch.cli"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cli + ["batch", str(path), *(p for p, _ in wavs), "--beam", "2",
+                                 "--slots", "2"],
+                          cwd=ROOT, capture_output=True, text=True, timeout=600)
+    tiny = load_model(str(path), device="cuda", dtype=torch.bfloat16)
+    eng = BeamSlotEngine(tiny, n_slots=2,
+                         options=DecodingOptions(beam_size=2, without_timestamps=True))
+    want = [f"== {p}: {r.text}" for (p, _), r in zip(wavs, eng.transcribe_many(
+        [a for _, a in wavs]))]
+    got = proc.stdout.strip().splitlines()[:-1]
+    log(f"[cli-engine] python -m whisper_tpu_torch.cli batch --beam 2 --slots 2 (tiny, bf16, on "
+        f"the card): exit {proc.returncode} in {time.perf_counter() - t0:.1f} s, its lines "
+        f"{'equal to' if got == want else 'NOT EQUAL TO'} this process's BeamSlotEngine's")
+    if proc.returncode != 0 or got != want:
+        raise AssertionError(f"cli batch --beam: exit {proc.returncode}, stdout {got}, want "
+                             f"{want}, stderr {proc.stderr[-2000:]}")
+    del eng, tiny
+
+    t0 = time.perf_counter()
+    stream = wavs[1][1][: 8 * SAMPLE_RATE]
+    server = subprocess.Popen(cli + ["serve", str(path), "--beam", str(BEAM),
+                                     "--slots", "4", "--port", "0"],
+                              cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
+    lines: queue.Queue = queue.Queue()  # its output, drained so that it never blocks
+    seen: list = []
+    threading.Thread(target=lambda: [(seen.append(ln), lines.put(ln)) for ln in server.stdout],
+                     daemon=True).start()
+    try:
+        port = None
+        end = time.monotonic() + 600
+        while port is None:
+            try:
+                ln = lines.get(timeout=max(0.0, end - time.monotonic()))
+            except queue.Empty:
+                raise AssertionError("cli serve did not announce its port in 600 s") from None
+            if ln.startswith("serving on http://"):
+                port = int(ln.split()[2].rsplit(":", 1)[1])
+        ready = time.perf_counter() - t0
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        conn.request("GET", "/healthz")
+        health = json.loads(conn.getresponse().read())
+        conn.close()
+        t1 = time.perf_counter()
+        status, body = _post(port, "/transcribe", _wav_bytes(stream))
+        took = time.perf_counter() - t1
+        server.send_signal(signal.SIGTERM)
+        rc = server.wait(timeout=300)
+    finally:
+        if server.poll() is None:
+            server.kill()
+            server.wait()
+    res = json.loads(body) if status == 200 else {}
+    seconds = len(stream) / SAMPLE_RATE
+    log(f"[cli-engine] python -m whisper_tpu_torch.cli serve (tiny, bf16, --beam {BEAM}, "
+        f"--slots 4): serving after {ready:.1f} s, /healthz {health}, POST /transcribe of "
+        f"{seconds:.1f} s: HTTP {status} in {took * 1e3:.1f} ms, "
+        f"{len(res.get('segments', []))} segments; exit {rc} on SIGTERM; {card}")
+    if not (health.get("ok") and status == 200 and rc == 0 and res.get("duration") == seconds
+            and isinstance(res.get("text"), str) and res.get("segments")):
+        raise AssertionError(f"cli serve --beam {BEAM}: /healthz {health}, HTTP {status} "
+                             f"{body[:300]}, exit {rc}, output {''.join(seen)[-2000:]}")
+
+
+def phase_server(card: str, model, float_streams, float_results) -> dict:
+    """EngineServer behind make_http_server on 127.0.0.1 (port 0): phase 4's
+    tiny checkpoint greedy and with beam 2 (a BeamSlotEngine) answers
+    /transcribe, /transcribe?stream=1 and /v1/audio/transcriptions with the
+    same engine's transcribe_streams results; then phase 22's large-v3 bf16
+    float engine takes phase 22's four streams as concurrent HTTP requests
+    (released to the worker together, ``_GatedQueue``), and their texts
+    must be phase 22's; then the CLI's batch --beam and serve --beam 5 as
+    subprocesses (``_cli_entry_points``). Returns the large-v3 server
+    run's launches."""
+    cfg, path = tiny_checkpoint()
+    tiny = load_model(str(path), device="cuda", dtype=torch.float32)
+    short, long_ = (load_wav_bytes(_wav_bytes(synthetic_audio(SAMPLE_RATE * sec, seed=sec)))
+                    for sec in (8, 35))
+    boundary = "XsMoKeX"
+    multipart = (f'--{boundary}\r\nContent-Disposition: form-data; name="file"; '
+                 f'filename="a.wav"\r\n\r\n').encode() + _wav_bytes(short) + (
+        f'\r\n--{boundary}\r\nContent-Disposition: form-data; name="response_format"\r\n\r\n'
+        f'verbose_json\r\n--{boundary}--\r\n').encode()
+    for beam in (None, 2):
+        topts = TranscribeOptions(temperature=0.0, beam_size=beam,
+                                  condition_on_previous_text=True)
+        eng = (BeamSlotEngine(tiny, n_slots=2, chunk_steps=8, options=DecodingOptions(beam_size=2))
+               if beam else SlotEngine(tiny, n_slots=2, chunk_steps=8))
+        want_short, want_long = eng.transcribe_streams([short, long_], topts)
+        t0 = time.perf_counter()
+        with EngineServer(eng, topts) as srv, http_front(srv) as port:
+            status, body = _post(port, "/transcribe", _wav_bytes(short))
+            if status != 200:
+                raise AssertionError(f"/transcribe: HTTP {status} {body[:300]}")
+            _same_result("/transcribe", want_short, json.loads(body))
+            status, body = _post(port, "/transcribe?stream=1", _wav_bytes(long_))
+            lines = [json.loads(ln) for ln in body.splitlines()]
+            segs = [ln["segment"] for ln in lines[:-1]]
+            if status != 200 or not lines[-1].get("done"):
+                raise AssertionError(f"?stream=1: HTTP {status}, last line {lines[-1:]}")
+            _same_result("?stream=1", want_long, {"text": lines[-1]["text"], "segments": segs})
+            status, body = _post(port, "/v1/audio/transcriptions", multipart, {
+                "Content-Type": f"multipart/form-data; boundary={boundary}"})
+            if status != 200:
+                raise AssertionError(f"/v1/audio/transcriptions: HTTP {status} {body[:300]}")
+            _same_result("/v1/audio/transcriptions", want_short, json.loads(body))
+            lat = srv.latency_stats()
+        log(f"[server] tiny f32 {'beam 2' if beam else 'greedy'}: /transcribe (8 s), "
+            f"?stream=1 (35 s, {len(segs)} segment lines before the summary) and "
+            f"/v1/audio/transcriptions verbose_json each equal to the engine's "
+            f"transcribe_streams; {(time.perf_counter() - t0) * 1e3:.1f} ms, latency {lat}; {card}")
+
+    eng = SlotEngine(model, n_slots=FLOAT_ENGINE_SLOTS, chunk_steps=32,
+                     max_new_tokens=FLOAT_ENGINE_TOKENS)
+    bodies = [_wav_bytes(a) for a in float_streams]
+    got = [None] * len(bodies)
+    _zero_launches()
+    srv = EngineServer(eng, TranscribeOptions(temperature=0.0))
+    srv._queue = _GatedQueue(len(bodies))
+    with srv, http_front(srv) as port:
+        def client(i):
+            got[i] = _post(port, "/transcribe", bodies[i])
+
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(len(bodies))]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t0
+        lat, stats = srv.latency_stats(), dict(eng.stats)
+    n = _read_launches()
+    if any(t.is_alive() for t in threads) or any(g is None or g[0] != 200 for g in got):
+        raise AssertionError(f"large-v3 server: requests failed: {[g and g[0] for g in got]}")
+    texts = [json.loads(g[1])["text"] for g in got]
+    same = sum(t == r["text"] for t, r in zip(texts, float_results))
+    seconds = sum(len(a) for a in float_streams) / SAMPLE_RATE
+    log(f"[server] large-v3 bf16 float engine ({FLOAT_ENGINE_SLOTS} slots): {len(bodies)} "
+        f"concurrent POST /transcribe ({seconds:.1f} s of audio) in {wall * 1e3:.1f} ms, "
+        f"{seconds / wall:.3f} s of audio per wall second; latency {lat}; stats "
+        f"{ {k: round(v, 4) if isinstance(v, float) else v for k, v in stats.items()} }; "
+        f"launches {n}; {same} of {len(texts)} texts equal to phase 22's; {card}")
+    if same != len(texts):
+        raise AssertionError("large-v3 server: the texts differ from phase 22's transcribe_streams")
+    if n["k1"] == 0 or n["k5_ragged"] == 0:
+        raise AssertionError(f"large-v3 server: K1 and the ragged K5 must run: {n}")
+    del eng
+    torch.cuda.empty_cache()
+    _cli_entry_points(card)
+    return n
+
+
 def main() -> None:
     card = phase_device()
     phase_build()
@@ -2669,12 +3275,16 @@ def main() -> None:
     wf = phase_whisper_full(card, model)
     chunked = phase_chunked_streaming_cli(card, model)
     phase_engine_parity(card)
-    fe = phase_engine_float(card, model)
+    fe, fe_streams, fe_results = phase_engine_float(card, model)
+    phase_beam_engine_parity(card)
+    bef = phase_beam_engine_float(card, model, fe_streams)
+    srv = phase_server(card, model, fe_streams, fe_results)
     del model, served
     torch.cuda.empty_cache()
     bench = phase_bench(card)
     greedy, beam_bench = bench["greedy-b64"], bench["beam5-b48"]
     eb = phase_engine_bench(card)
+    beb = phase_beam_engine_bench(card)
     train_rows, k1b_entry = phase_train_kernels(card)
     phase_train_parity(card)
     train = phase_train(card)
@@ -2686,7 +3296,7 @@ def main() -> None:
         # the b8 row; the b64 row beside it with phase 8's launches
         ("flash_attention", "flash_attention.cu", "flash_attention.py:141",
          bf16["k1"] + n["k1"] + wf["k1"] + chunked["k1"] + greedy["k1"] + beam_bench["k1"]
-         + fe["k1"] + eb["k1"], k1["b8"]),
+         + fe["k1"] + eb["k1"] + beb["k1"] + srv["k1"] + bef["k1"], k1["b8"]),
         ("flash_attention.b64", "flash_attention.cu", "flash_attention.py:141", n["k1"],
          k1["b64"]),
         # the int8 step's kernels: phase 8 and both bench runs (the greedy
@@ -2722,22 +3332,53 @@ def main() -> None:
          rows["engine-self-t32"]),
         ("cross_attention_int8.self_ragged", "cross_attention_int8.cu",
          "cross_attention_int8.py:109", eb["k4_ragged"], rows["engine-self"]),
+        # the int8 beam engine bench (phase 25): the cross fold at every step
+        # (5 query rows a group), the admission prefill's cross and self (one
+        # row a group, at the greedy engine's shapes), and self with each
+        # group's n_past read from device memory; K7's fork copies over its
+        # 165-row pool, at the typical fork count, the storm's times beside
+        ("cross_attention_int8.cross_beam.engine", "cross_attention_int8.cu",
+         "cross_attention_int8.py:109", beb["fold"], rows["beam-engine-cross"]),
+        ("cross_attention_int8.cross_prefill.beam_engine", "cross_attention_int8.cu",
+         "cross_attention_int8.py:109", beb["k4"] - beb["k4_self"] - beb["fold"],
+         rows["engine-cross-t32"]),
+        ("cross_attention_int8.self_prefill.beam_engine", "cross_attention_int8.cu",
+         "cross_attention_int8.py:109", beb["k4_self"] - beb["k4_ragged"],
+         rows["engine-self-t32"]),
+        ("cross_attention_int8.self_ragged.beam_engine", "cross_attention_int8.cu",
+         "cross_attention_int8.py:109", beb["k4_ragged"], rows["beam-engine-self"]),
         # K5 on the bf16 paths, each row with its launches: phase 5's greedy
         # batch, whisper_full (phase 17) and chunked (phase 19), and phase
-        # 12's host beam (both rows carry the CUDA-graph time)
+        # 12's host beam (both rows carry the CUDA-graph time); the float
+        # engines' prefills in the first
         ("cached_attention", "decode_attention.cu", "decode_attention.py:109",
-         bf16["k5"] + wf["k5"] + chunked["k5"] + fe["k5"] - fe["k5_ragged"], rows["k5-b8"]),
-        # the float engine's step (phase 22): each slot's n_past read from
-        # device memory
+         bf16["k5"] + wf["k5"] + chunked["k5"] + fe["k5"] - fe["k5_ragged"] + srv["k5"]
+         - srv["k5_ragged"] + bef["k5"] - bef["k5_ragged"], rows["k5-b8"]),
+        # the float engine's step (phase 22, and behind the server in phase
+        # 26): each slot's n_past read from device memory
         ("cached_attention.ragged", "decode_attention.cu", "decode_attention.py:109",
-         fe["k5_ragged"], rows["k5-engine"]),
+         fe["k5_ragged"] + srv["k5_ragged"], rows["k5-engine"]),
         ("cached_attention.beam", "decode_attention.cu", "decode_attention.py:109", host["k5"],
          rows["k5-beam"]),
+        # the float beam engine at full width (phase 24's large-v3 run): 85
+        # rows, each group's n_past read from device memory
+        ("cached_attention.ragged.beam_engine", "decode_attention.cu", "decode_attention.py:109",
+         bef["k5_ragged"], rows["k5-beam-engine"]),
         ("permute_rows_multi", "beam_gather.cu", "beam_gather.py:159", host["k6"],
          rows["k6-bf16"]),  # the host beam's float cache
         ("cow_copy_rows", "beam_gather.cu", "beam_gather.py:280", beam["k7"], rows["k7-96"]),
         ("cow_copy_rows.b48", "beam_gather.cu", "beam_gather.py:280", beam_bench["k7"],
          rows["k7-144"]),
+        ("cow_copy_rows.engine", "beam_gather.cu", "beam_gather.py:280", beb["k7"],
+         {**rows[_k7_name(BEAM_ENGINE_FORKS, ENGINE_CTX)],
+          "forks": BEAM_ENGINE_FORKS, **{f"storm_{key}": value for key, value in rows[
+              _k7_name(BEAM_ENGINE_GROUPS * (BEAM - 1), ENGINE_CTX)].items()
+              if key in ("ms", "plain_ms", "bound_ms", "library_ms")},
+          "storm_forks": BEAM_ENGINE_GROUPS * (BEAM - 1)}),
+        # and over the float beam engine's bf16 pool (phase 24's large-v3 run)
+        ("cow_copy_rows.float_engine", "beam_gather.cu", "beam_gather.py:280", bef["k7"],
+         {**rows[_k7_name(FLOAT_BEAM_FORKS, FLOAT_ENGINE_CTX, torch.bfloat16)],
+          "forks": FLOAT_BEAM_FORKS}),
         # The large-v3 training path's kernels (phase 15), at the encoder's
         # shape: K1's f32 kernel (K1c's forward) alone, K1c's backward kernel
         # alone, and K1c forward and backward, with the forward's launches,

@@ -152,16 +152,23 @@ def test_env_knobs_give_bench_py_defaults(env, want):
     assert {k: got[k] for k in want} == want
 
 
-def test_bench_mode_engine_and_spec_fail_with_their_module():
-    """The modes the port does not have yet exit non-zero naming their
-    module and ROADMAP item: spec (item 14), and the engine with a beam
-    (item 13) or a draft (item 14); the greedy engine itself runs
-    (tests/test_torch_engine.py)."""
+def test_bench_beam_engine_defaults_and_what_still_fails():
+    """BENCH_MODE=engine with BENCH_BEAM=5 takes bench.py's beam engine
+    defaults (32 groups, chunks of 16) and leaves the greedy defaults
+    without it; spec and BENCH_DRAFT still exit naming item 14, the entry
+    point with one JSON line and exit code 1."""
+    got = benchmark.engine_config_from_env({"BENCH_BEAM": "5"})
+    assert (got["beam_size"], got["n_slots"], got["chunk_steps"]) == (5, 32, 16)
+    got = benchmark.engine_config_from_env({"BENCH_BEAM": "5", "BENCH_BATCH": "8",
+                                            "BENCH_CHUNK": "4"})
+    assert (got["beam_size"], got["n_slots"], got["chunk_steps"]) == (5, 8, 4)
+    got = benchmark.engine_config_from_env({})
+    assert (got["beam_size"], got["n_slots"], got["chunk_steps"]) == (None, 64, 32)
     with pytest.raises(WhisperError, match="parallel/spec_engine.py"):
         benchmark.bench_config_from_env({"BENCH_MODE": "spec"})
     with pytest.raises(WhisperError, match="item 14"):
         benchmark.engine_config_from_env({"BENCH_DRAFT": "d.npz"})
-    env = dict(os.environ, BENCH_MODE="engine", BENCH_BEAM="5")
+    env = dict(os.environ, BENCH_MODE="engine", BENCH_BEAM="5", BENCH_DRAFT="d.npz")
     proc = subprocess.run([sys.executable, "-m", "whisper_tpu_torch.utils.benchmark",
                            "--device", "cpu"], cwd=ROOT, env=env, capture_output=True,
                           text=True, timeout=300)
@@ -169,5 +176,24 @@ def test_bench_mode_engine_and_spec_fail_with_their_module():
     lines = proc.stdout.strip().splitlines()
     assert len(lines) == 1
     line = json.loads(lines[0])
-    assert line["value"] == 0.0 and "parallel/beam_engine.py" in line["detail"]["error"]
-    assert "item 13" in line["detail"]["error"]
+    assert line["value"] == 0.0 and "parallel/spec_engine.py" in line["detail"]["error"]
+    assert "item 14" in line["detail"]["error"]
+
+
+def test_beam_engine_benchmark_on_a_tiny_model():
+    """run_engine_benchmark with a beam on the CPU (tiny preset, two groups
+    of two rows, three int16 streams, one timed wave): the beam metric name
+    in JAX's order, every stream drained, the fork counts of the timed
+    wave, and the memory guard's estimate at beam 2."""
+    r = benchmark.run_engine_benchmark(model_name="tiny", n_slots=2, n_streams=3,
+                                       chunk_steps=8, max_new_tokens=6, seconds=0,
+                                       beam_size=2, device="cpu")
+    assert r["metric"] == "rtf_torch_tiny_engine_s2_q3_beam2_int8"
+    d = r["detail"]
+    assert d["beam_size"] == 2 and d["waves"] == 1 and d["n_results"] == 3
+    assert d["forks"]["rows"] == 6 and d["forks"]["steps"] > 0
+    assert d["forks"]["max_forked_rows"] <= 2  # one fork a group at k = 2, trash none
+    # the pool: the 32-token prompt bucket, 6 tokens and 8 spare
+    assert d["hbm_estimate"] == dict(config.PRESETS["tiny"].serving_hbm_estimate(
+        batch=3, beam=2, ctx=32 + 6 + 8, kv_dtype_bytes=1, enc_batch=16, engine=True),
+        budget=None)

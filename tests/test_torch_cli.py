@@ -9,7 +9,11 @@ checkpoint (f32) and the same WAV files.
 - info: the same lines; convert (f16 and f32): a byte-identical file;
 - detect-language: the same language; eval: the same WER dict (all but the
   wall-clock rtf); stream: the same printed transcript;
-- batch (the SlotEngine) prints the engine's transcripts;
+- batch (the SlotEngine) prints the engine's transcripts; batch --beam
+  (the BeamSlotEngine, with and without --long-form) prints JAX's
+  BeamSlotEngine's on the same bf16 model;
+- serve on a loopback port answers /transcribe with the engine's own
+  result and exits 0 on SIGTERM;
 - each subcommand or flag that waits for an unported module exits 2 naming it.
 
 The temperature ladder's sampling rungs cannot match ``jax.random``:
@@ -165,15 +169,17 @@ def test_stream_matches_jax(files, first_rung_only):
 
 
 @pytest.mark.parametrize("argv,module", [
-    (["batch", "{model}", "{wav}", "--beam", "2"], "parallel/beam_engine.py (ROADMAP item 13)"),
-    (["serve", "{model}"], "parallel/server.py"),
+    (["serve", "{model}", "--draft", "{model}"], "parallel/spec_engine.py (ROADMAP item 14)"),
+    (["serve", "{model}", "--tp", "2"], "ROADMAP item 16"),
+    (["serve", "{model}", "--profiler-port", "9999"], "ROADMAP item 18"),
     (["export", "{model}", "{out}"], "utils/aot.py"),
     (["transcribe", "{model}", "{wav}", "--draft", "{model}"], "decoding/speculative.py"),
     (["transcribe", "{model}", "{wav}", "--tp", "2"], "parallel/mesh.py"),
     (["batch", "{model}", "{wav}", "--draft", "{model}"],
      "parallel/spec_engine.py (ROADMAP item 14)"),
     (["batch", "{model}", "{wav}", "--tp", "2"], "ROADMAP item 16"),
-], ids=["batch", "serve", "export", "draft", "tp", "batch-draft", "batch-tp"])
+], ids=["serve-draft", "serve-tp", "serve-profiler", "export", "draft", "tp", "batch-draft",
+        "batch-tp"])
 def test_unported_subcommands_exit_with_their_module(files, capsys, argv, module):
     d, model, wavs = files
     argv = [a.format(model=model, wav=wavs[0], out=str(d / "x.aot")) for a in argv]
@@ -191,3 +197,107 @@ def test_entry_points_default_to_the_card(files, capsys, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert cli.main(["transcribe", model, wavs[0]]) == 2
     assert "no CUDA card" in capsys.readouterr().err
+
+
+def test_batch_beam_matches_jax_beam_engine(files, monkeypatch, first_rung_only):
+    """batch --beam 2 (transcribe_many over beam groups) and with
+    --long-form (beam windows through transcribe_streams) print what JAX's
+    BeamSlotEngine gives on the same model and WAVs. Both run in f32 (the
+    CLI loads bf16, whose last bits differ between the packages and can part
+    the beams): the port's load_model is made to load f32 here, and both
+    ladders stop at the first rung (sampling cannot match jax.random). JAX's own
+    cli batch --beam cannot be the reference: it passes audio_ctx, which
+    JAX's BeamSlotEngine does not take."""
+    import jax.numpy as jnp
+
+    from whisper_tpu.decoding.task import DecodingOptions as JaxOptions
+    from whisper_tpu.io.wav import load_wav
+    from whisper_tpu.model.load import load_model as jax_load_model
+    from whisper_tpu.parallel.beam_engine import BeamSlotEngine as JaxBeamEngine
+    from whisper_tpu.pipeline.transcribe import TranscribeOptions as JaxTranscribeOptions
+    from whisper_tpu_torch.model import load as load_module
+
+    _, model, wavs = files
+    jm = jax_load_model(model, dtype=jnp.float32, use_native=False)
+    audios = [load_wav(p) for p in wavs]
+    many = JaxBeamEngine(jm, n_slots=2, options=JaxOptions(beam_size=2, without_timestamps=True)
+                         ).transcribe_many(audios)
+    streams = JaxBeamEngine(jm, n_slots=2, options=JaxOptions(beam_size=2)).transcribe_streams(
+        audios, JaxTranscribeOptions(beam_size=2))
+    real_load = load_module.load_model
+    monkeypatch.setattr(load_module, "load_model", lambda path, device, dtype: real_load(
+        path, device=device, dtype=torch.float32))
+    for flags, files_, expect in (
+            ([], wavs, [f"== {p}: {r.text}" for p, r in zip(wavs, many)]),
+            (["--long-form"], wavs, [f"== {p}: {r['text']}" for p, r in zip(wavs, streams)])):
+        rc, out = run(cli.main, ["batch", model, *files_, "--beam", "2", "--slots", "2",
+                                 "--device", "cpu", *flags])
+        assert rc == 0
+        lines = out.strip().splitlines()
+        assert lines[:-1] == expect and "realtime, 2 slots" in lines[-1]
+
+
+@pytest.mark.parametrize("beam", [[], ["--beam", "2"]], ids=["greedy", "beam"])
+def test_serve_on_a_loopback_port(files, beam, first_rung_only):
+    """cli serve on 127.0.0.1 (port 0), on this process's main thread as a
+    daemon runs it: a client thread reads the announced port, checks
+    /healthz, POSTs a WAV to /transcribe (the engine's own
+    transcribe_streams result, ladder stopped at the first rung), then
+    sends SIGTERM as a Python-level signal; serve drains and returns 0.
+    Every wait is bounded."""
+    import _thread
+    import re
+    import signal
+    import threading
+    import time
+
+    import http.client
+
+    from whisper_tpu_torch.decoding.task import DecodingOptions
+    from whisper_tpu_torch.io.wav import load_wav
+    from whisper_tpu_torch.model.load import load_model
+    from whisper_tpu_torch.parallel.beam_engine import BeamSlotEngine
+    from whisper_tpu_torch.parallel.engine import SlotEngine
+    from whisper_tpu_torch.pipeline.transcribe import TranscribeOptions
+
+    _, model, wavs = files
+    k = int(beam[1]) if beam else None
+    m = load_model(model, device="cpu", dtype=torch.bfloat16, use_native=False)
+    eng = (BeamSlotEngine(m, n_slots=2, options=DecodingOptions(beam_size=k)) if k
+           else SlotEngine(m, n_slots=2))
+    want = eng.transcribe_streams([load_wav(wavs[0])], TranscribeOptions(beam_size=k))[0]
+
+    out, seen = io.StringIO(), {}
+
+    def client():
+        end = time.monotonic() + 600
+        while not (found := re.search(r"serving on http://127\.0\.0\.1:(\d+)", out.getvalue())):
+            if time.monotonic() > end:
+                seen["error"] = "the server never announced itself"
+                return
+            time.sleep(0.05)
+        try:
+            conn = http.client.HTTPConnection("127.0.0.1", int(found.group(1)), timeout=600)
+            conn.request("GET", "/healthz")
+            seen["health"] = json.loads(conn.getresponse().read())
+            with open(wavs[0], "rb") as f:
+                conn.request("POST", "/transcribe", body=f.read())
+            resp = conn.getresponse()
+            seen["status"], seen["result"] = resp.status, json.loads(resp.read())
+            conn.close()
+        finally:
+            # the Python-level SIGTERM handler serve installed before the
+            # announcement; a no-op where none is installed
+            _thread.interrupt_main(signal.SIGTERM)
+
+    t = threading.Thread(target=client, daemon=True)
+    t.start()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(["serve", model, "--port", "0", "--slots", "2", "--device", "cpu", *beam])
+    t.join(timeout=600)
+    assert not t.is_alive() and "error" not in seen
+    assert rc == 0 and "draining" in out.getvalue()
+    assert seen["health"]["ok"] is True and seen["status"] == 200
+    got = seen["result"]
+    assert (got["text"], got["duration"]) == (want["text"], want["duration"])
+    assert [s["tokens"] for s in got["segments"]] == [s["tokens"] for s in want["segments"]]

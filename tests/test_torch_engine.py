@@ -350,7 +350,7 @@ def test_engine_benchmark_json_line_on_a_tiny_model():
     assert set(d["stats"]) >= {"admit_s", "chunk_s", "pull_s", "rounds"}
     assert d["hbm_estimate"]["total"] > 0 and d["peak_allocated_bytes"] is None
     assert benchmark.engine_config_from_env({}) == dict(
-        model_name="large-v3", n_slots=64, n_streams=None, chunk_steps=32, quantize=True,
+        model_name="large-v3", beam_size=None, n_slots=64, n_streams=None, chunk_steps=32, quantize=True,
         seconds=120, prestage=False, enc_int8=False, max_bucket=None, schedule=None)
     assert [len(a) for a in benchmark.engine_streams(4)] == [384000, 432000, 480000, 384000]
 

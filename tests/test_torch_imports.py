@@ -19,9 +19,9 @@ names = [m.name for m in pkgutil.walk_packages(whisper_tpu_torch.__path__, "whis
 for name in names:
     importlib.import_module(name)
 import chip_smoke
-assert len(names) >= 59, names
+assert len(names) >= 61, names
 for entry in ("cli", "runtime.native", "utils.benchmark", "pipeline.chunked",
-              "pipeline.streaming", "utils.synth"):
+              "pipeline.streaming", "utils.synth", "parallel.beam_engine", "parallel.server"):
     assert "whisper_tpu_torch." + entry in names, entry
 print(len(names))
 """

@@ -8,9 +8,9 @@ Port of ``whisper_tpu/cli.py`` with the same subcommands and flags:
 
 Every subcommand that computes takes ``--device`` (default ``cuda``: the
 card; ``cpu`` runs the kernels' plain versions), in place of the JAX
-package's platform handling. ``serve`` and ``export``, ``transcribe
---draft``/``--tp`` and ``batch --beam``/``--draft``/``--tp`` stay in the
-parser and exit with an error naming the module they wait for. A ``WhisperError`` prints ``error: ...``
+package's platform handling. ``export``, ``transcribe --draft``/``--tp``,
+``batch --draft``/``--tp`` and ``serve --draft``/``--tp``/``--profiler-port``
+stay in the parser and exit with an error naming the module they wait for. A ``WhisperError`` prints ``error: ...``
 and exits 2.
 """
 
@@ -263,36 +263,52 @@ def cmd_eval(args) -> int:
     return 0
 
 
+def _serving_model(args, device: str):
+    """The checkpoint in bf16 on ``device``, with int8 decoder weights under
+    --quantize and W8A8 encoder weights under --enc-int8."""
+    import torch
+
+    from .model.load import load_model
+    from .model.quant import quantize_decoder_weights, quantize_encoder_weights
+
+    model = load_model(args.model, device=device, dtype=torch.bfloat16)
+    params = model.params
+    if args.quantize:
+        params = quantize_decoder_weights(params)
+    if args.enc_int8:
+        params = quantize_encoder_weights(params)
+    return model.with_params(params) if params is not model.params else model
+
+
+def _engine(args, model, **options):
+    """The serving engine of ``args``: a BeamSlotEngine of --beam rows a
+    slot, else the greedy SlotEngine."""
+    from .decoding.task import DecodingOptions
+    from .parallel.beam_engine import BeamSlotEngine
+    from .parallel.engine import SlotEngine
+
+    cls = BeamSlotEngine if args.beam else SlotEngine
+    return cls(model, n_slots=args.slots,
+               options=DecodingOptions(language=args.language, beam_size=args.beam or None,
+                                       **options),
+               quantize=args.quantize, audio_ctx=args.audio_ctx)
+
+
 def cmd_batch(args) -> int:
     """Continuous-batching transcription of many WAVs: the native threaded
-    loader decodes the files while the SlotEngine refills finished slots
-    from the queue between decode chunks."""
-    if args.beam:
-        raise _unported("batch --beam (continuous-batching beam groups)",
-                        "parallel/beam_engine.py (ROADMAP item 13)")
+    loader decodes the files while the engine refills finished slots from
+    the queue between decode chunks (--beam N: slots of N-row beam
+    groups)."""
     if args.draft:
         raise _unported("batch --draft (speculative continuous batching)",
                         "parallel/spec_engine.py (ROADMAP item 14)")
     if args.tp and args.tp > 1:
         raise _unported("batch --tp", "tensor parallelism, parallel/{mesh,sharding}.py "
                         "(ROADMAP item 16)")
-    import torch
-
-    from .decoding.task import DecodingOptions
     from .io.wav import resample_poly
-    from .model.load import load_model
-    from .model.quant import quantize_decoder_weights, quantize_encoder_weights
-    from .parallel.engine import SlotEngine
     from .runtime.native import NativeAudioLoader
 
-    model = load_model(args.model, device=_device(args), dtype=torch.bfloat16)
-    params = model.params
-    if args.quantize:
-        params = quantize_decoder_weights(params)
-    if args.enc_int8:
-        params = quantize_encoder_weights(params)
-    if params is not model.params:
-        model = model.with_params(params)
+    model = _serving_model(args, _device(args))
     loader = NativeAudioLoader(args.audio, n_threads=args.io_threads)
     audios = []
     for _, rate, audio in loader:
@@ -303,24 +319,20 @@ def cmd_batch(args) -> int:
     total = sum(len(a) for a in audios) / 16000.0
     if args.long_form:
         # whisper_full through the engine: window continuation, prompt
-        # carry, no-speech gate and fallback escalation per stream
+        # carry, no-speech gate and fallback escalation per stream; --beam
+        # decodes every window with beam search
         from .pipeline.transcribe import TranscribeOptions
 
-        engine = SlotEngine(model, n_slots=args.slots,
-                            options=DecodingOptions(language=args.language),
-                            quantize=args.quantize, audio_ctx=args.audio_ctx)
+        engine = _engine(args, model)
         t0 = time.perf_counter()
         results = engine.transcribe_streams(
-            audios, TranscribeOptions(language=args.language,
+            audios, TranscribeOptions(language=args.language, beam_size=args.beam or None,
                                       word_timestamps=args.word_timestamps))
         wall = time.perf_counter() - t0
         for path, res in zip(args.audio, results):
             print(f"== {path}: {res['text']}")
     else:
-        engine = SlotEngine(model, n_slots=args.slots,
-                            options=DecodingOptions(language=args.language,
-                                                    without_timestamps=True),
-                            quantize=args.quantize, audio_ctx=args.audio_ctx)
+        engine = _engine(args, model, without_timestamps=True)
         t0 = time.perf_counter()
         results = engine.transcribe_many(audios)
         wall = time.perf_counter() - t0
@@ -332,8 +344,71 @@ def cmd_batch(args) -> int:
 
 
 def cmd_serve(args) -> int:
-    raise _unported("serve (the HTTP transcription server)",
-                    "parallel/server.py and parallel/engine.py")
+    """HTTP transcription daemon: POST /transcribe (WAV body) -> result
+    JSON, ?stream=1 NDJSON, the OpenAI audio endpoints, GET /healthz and
+    /stats. Concurrent clients share the card through the
+    continuous-batching engine (whisper_full long-form per request; --beam N
+    serves beam groups; --dp N one engine replica per card). SIGTERM drains
+    the requests in flight, then exits."""
+    if args.draft:
+        raise _unported("serve --draft (speculative continuous batching)",
+                        "parallel/spec_engine.py (ROADMAP item 14)")
+    if args.tp and args.tp > 1:
+        raise _unported("serve --tp", "tensor parallelism, parallel/{mesh,sharding}.py "
+                        "(ROADMAP item 16)")
+    if args.profiler_port:
+        raise _unported("serve --profiler-port (live device traces)",
+                        "a profiler server (ROADMAP item 18)")
+    import signal
+
+    import torch
+
+    from .parallel.server import EngineServer, MultiEngineServer, make_http_server
+    from .pipeline.transcribe import TranscribeOptions
+
+    device = _device(args)
+    dp = max(1, args.dp or 1)
+    devices = [device] * dp
+    if dp > 1 and device.startswith("cuda"):
+        # one engine replica per card
+        if torch.cuda.device_count() < dp:
+            raise WhisperError(f"--dp {dp} needs {dp} CUDA cards; "
+                               f"{torch.cuda.device_count()} are available")
+        devices = [f"cuda:{i}" for i in range(dp)]
+    topts = TranscribeOptions(language=args.language, task=args.task,
+                              beam_size=args.beam or None, word_timestamps=args.word_timestamps)
+    servers = [EngineServer(_engine(args, _serving_model(args, dev), task=args.task), topts,
+                            max_queue=args.max_queue, request_timeout_s=args.request_timeout)
+               for dev in devices]
+    srv_cm = servers[0] if dp == 1 else MultiEngineServer(servers)
+    if args.warmup:
+        for i, s in enumerate(servers):
+            t0 = time.perf_counter()
+            s.engine.warmup(topts)
+            print(f"warmup: replica {i} ran every serving shape in "
+                  f"{time.perf_counter() - t0:.1f}s", flush=True)
+    with srv_cm as srv:
+        httpd = make_http_server(srv, args.host, args.port)
+        host, port = httpd.server_address[:2]
+
+        # SIGTERM (systemd, k8s stop): leave serve_forever on the main
+        # thread; the context manager then drains the requests in flight.
+        # Installed before the line below announces the server.
+        def _term(signum, frame):
+            raise KeyboardInterrupt
+
+        prev = signal.signal(signal.SIGTERM, _term)
+        print(f"serving on http://{host}:{port} (slots={args.slots}, "
+              f"beam={args.beam or 'greedy'}, quantize={args.quantize}, replicas={dp}) - "
+              f"POST /transcribe with WAV bytes", flush=True)
+        try:
+            httpd.serve_forever()
+        except KeyboardInterrupt:
+            print("shutting down: draining in-flight requests", flush=True)
+        finally:
+            signal.signal(signal.SIGTERM, prev)
+            httpd.server_close()
+    return 0
 
 
 def cmd_detect_language(args) -> int:
@@ -485,7 +560,7 @@ def main(argv=None) -> int:
     _add_device_arg(p)
     p.set_defaults(fn=cmd_stream)
 
-    p = sub.add_parser("serve", help="HTTP transcription server (not ported yet)")
+    p = sub.add_parser("serve", help="HTTP transcription server")
     p.add_argument("model")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8080)
@@ -508,13 +583,14 @@ def main(argv=None) -> int:
     p.add_argument("--tp", type=int, default=None,
                    help="tensor-parallel serving over this many devices")
     p.add_argument("--dp", type=int, default=None,
-                   help="data-parallel serving: this many engine replicas")
+                   help="data-parallel serving: this many engine replicas, one a card")
     p.add_argument("--warmup", action="store_true",
                    help="run every serving program once before binding the port")
     p.add_argument("--request-timeout", type=float, default=None,
                    help="server-side deadline in seconds per request")
     p.add_argument("--profiler-port", type=int, default=None,
                    help="serve live device traces on this port")
+    _add_device_arg(p)
     p.set_defaults(fn=cmd_serve)
 
     p = sub.add_parser("export", help="serialize an ahead-of-time decode program "

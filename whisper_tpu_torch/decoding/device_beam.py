@@ -50,7 +50,7 @@ def beam_update(
     fin_scores: torch.Tensor,  # (G, k)
     fin_len: torch.Tensor,     # (G, k)
     fin_count: torch.Tensor,   # (G,)
-    step: int,                 # index of the position being sampled
+    step,                      # int, or (G,) int tensor: the position being sampled
     k: int,
     eot: int,
 ):
@@ -60,6 +60,13 @@ def beam_update(
     become the new beams; EOT candidates go to the finished set only while
     fewer than k non-EOT candidates precede them (openai's break after k
     saved), capped at k in insertion order.
+
+    ``step`` is one int for every group (the device beam) or a (G,) tensor
+    on the device with each group's own step (the beam engine's groups,
+    JAX's vmapped ``_bu_group``), never read on the host. A group whose
+    step is the history's length (a frozen group after its last position)
+    writes the last column, as JAX's ``dynamic_update_slice`` clamps its
+    start; the beam engine keeps a frozen group's bookkeeping as it was.
 
     Returns (new_sum_lp, new_tok, new_src, tokens_new,
              fin_tokens, fin_scores, fin_len, fin_count)."""
@@ -88,7 +95,12 @@ def beam_update(
     new_src = s_src.gather(1, idx_sorted)  # (G, k) beam idx
 
     tokens_new = tokens.gather(1, new_src[:, :, None].expand(-1, -1, SL)).clone()
-    tokens_new[:, :, step] = new_tok
+    if isinstance(step, torch.Tensor):
+        col = step.clamp(max=SL - 1).to(torch.long)[:, None, None].expand(G, k, 1)
+        tokens_new.scatter_(2, col, new_tok[:, :, None])
+        step = step[:, None]  # the finished lengths below, per group
+    else:
+        tokens_new[:, :, step] = new_tok
 
     # Finished insertion: an EOT candidate is CONSIDERED only while fewer
     # than k non-EOT candidates precede it; capacity k, insertion order.

@@ -25,8 +25,13 @@ int8 decode-attention kernel (K4, ``kernels.cross_attention_int8``).
 sequence and returns every layer's cross-attention distribution, the
 alignment signal of word timing (``pipeline/word_timing.py``).
 
-Not ported yet: ``permute_rows`` (the beam engine's fused reorder), the
-ragged multi-token verify block, ``defer_append`` and ``decode_step_chunk``.
+Not ported yet: the ragged multi-token verify block and ``defer_append``
+(speculative decoding, ROADMAP item 14). Not carried over: ``permute_rows``,
+``decode_step_chunk``, ``_chunk_block`` and ``init_tail``, the JAX beam
+engine's chunked copy-on-write (a read-only pool, a per-chunk tail and one
+permute and flush a chunk, against XLA's whole-pool rewrites); the port's
+beam engine forks rows in place with K7 and reads the pool as this module's
+ragged path does (``parallel.beam_engine``).
 """
 
 from __future__ import annotations

@@ -99,17 +99,19 @@ def _to_device(array: np.ndarray, device: torch.device) -> torch.Tensor:
 
 class _HostCopy:
     """Copies of device tensors to the host, started now without waiting;
-    ``get`` waits for these copies alone (an event recorded after them),
+    ``get`` waits for these copies alone (an event recorded after them on
+    their card's stream, whatever the calling thread's current device),
     not for work enqueued later."""
 
     def __init__(self, tensors: Sequence[torch.Tensor]):
-        on_card = tensors[0].device.type == "cuda"
+        device = tensors[0].device
+        on_card = device.type == "cuda"
         self.host = [t.to("cpu", non_blocking=True) if on_card else t.clone()
                      for t in tensors]
         self.event = None
         if on_card:
             self.event = torch.cuda.Event()
-            self.event.record()
+            self.event.record(torch.cuda.current_stream(device))
 
     def ready(self) -> bool:
         return self.event is None or self.event.query()
@@ -318,14 +320,16 @@ class SlotEngine:
     def _check_hbm_budget(self, pool_ctx: Optional[int] = None) -> None:
         """config.check_serving_hbm over this engine's geometry (the slot pool
         with its trash row, an admission bucket beside it), against the
-        card's memory (unchecked on the CPU); the estimate is kept in
-        ``hbm_estimate``."""
+        card's memory (unchecked on the CPU), each slot ``beam_size`` rows on
+        a beam engine; the estimate is kept in ``hbm_estimate``."""
+        beam = getattr(self, "beam_size", None) or 1
         self.hbm_estimate = check_serving_hbm(
-            self.cfg, self.n_slots + 1, beam=1,
+            self.cfg, self.n_slots + 1, beam=beam,
             ctx=pool_ctx if pool_ctx is not None else self.pool_ctx,
             kv_dtype_bytes=1 if self.quantize else 2, enc_batch=self._ADMIT_BUCKETS[0],
             engine=True, device=self.device,
-            what=f"SlotEngine(n_slots={self.n_slots}, quantize={self.quantize})")
+            what=f"{type(self).__name__}(n_slots={self.n_slots}, beam={beam}, "
+                 f"quantize={self.quantize})")
 
     # -- stream admission (bucketed: joiners encode and prefill together) --
 
@@ -441,6 +445,14 @@ class SlotEngine:
             self._nosp_token())
         if max_news is None:
             max_news = torch.full((bucket,), self.max_new, dtype=torch.int32, device=dev)
+        self._size_pools(ck, cv)
+        return {"bucket": bucket, "ck": ck, "cv": cv, "cache": cache, "logits": first_logits,
+                "lengths": lengths, "max_news": max_news, "nosp": nosp}
+
+    def _size_pools(self, ck, cv) -> None:
+        """Make the state and the cross pools (one row a slot and the trash
+        row, float or QuantKV) at the first staged bucket's dtypes and
+        widths, if they do not exist yet."""
         if self._state is None:
             self._init_state(getattr(ck, "data", ck).dtype)
         if self._cross_pool_k is None:
@@ -451,8 +463,6 @@ class SlotEngine:
 
             self._cross_pool_k = pool_like(ck)
             self._cross_pool_v = pool_like(cv)
-        return {"bucket": bucket, "ck": ck, "cv": cv, "cache": cache, "logits": first_logits,
-                "lengths": lengths, "max_news": max_news, "nosp": nosp}
 
     def _install_rows(self, staged: dict, slot_list, rows) -> None:
         """Scatter payload rows ``rows`` of a staged bucket into ``slot_list``
@@ -679,29 +689,62 @@ class SlotEngine:
         streams = [self._init_stream(i, a, topts) for i, a in enumerate(audios)]
         pending = [st for st in streams if not st["done"]]
         pending.reverse()
-        slot_stream: list = [None] * self.n_slots
+        self.stats = {"admit_s": 0.0, "chunk_s": 0.0, "pull_s": 0.0, "fallback_s": 0.0,
+                      "rounds": 0, "windows": 0, "fallbacks": 0}
+
+        def finish(s, st, pulled):
+            if self._advance_stream(s, st, pulled, topts, temps):
+                st["done"] = True
+            else:
+                pending.append(st)
+
+        self._schedule_streams(topts, [None] * self.n_slots,
+                               keep_going=lambda busy: busy or bool(pending),
+                               next_stream=lambda: pending.pop() if pending else None,
+                               finish=finish)
+        return [self._stream_output(st) for st in streams]
+
+    def _schedule_streams(self, topts, slot_stream: list, keep_going, next_stream,
+                          finish) -> None:
+        """The long-form scheduler, shared by ``transcribe_streams`` (a list
+        of streams) and ``server.EngineServer`` (a live queue). Each round:
+        ``keep_going(busy)`` (busy: a slot is taken or a harvest is on its
+        way) ends the loop when it returns False; free slots take streams
+        from ``next_stream()`` (None: none now) and their windows are
+        encoded and prefilled bucket by bucket; one decode chunk and the
+        copy of its harvest arrays are started; then the PREVIOUS round's
+        copy is read, and each slot whose window finished there is freed
+        and handed to ``finish(slot, stream, pulled)``. ``slot_stream`` (one
+        entry a slot, None when free) is the caller's, so a caller whose
+        loop dies still sees the streams in flight. Adds to ``self.stats``'
+        admit_s, chunk_s, pull_s and rounds."""
         # Admission tickets guard the one-round-late harvest: a stale
         # snapshot of a slot that a stream's next window has re-entered must
         # not be harvested as the new window's result.
         slot_ticket = [0] * self.n_slots
         next_ticket = 1
-        self.stats = {"admit_s": 0.0, "chunk_s": 0.0, "pull_s": 0.0, "fallback_s": 0.0,
-                      "rounds": 0, "windows": 0, "fallbacks": 0}
         snap = None
-        while pending or any(s is not None for s in slot_stream) or snap:
+        while True:
+            busy = snap is not None or any(st is not None for st in slot_stream)
+            if not keep_going(busy):
+                break
             join = []
             for s in range(self.n_slots):
-                if slot_stream[s] is None and pending:
-                    st = pending.pop()
+                if slot_stream[s] is None:
+                    st = next_stream()
+                    if st is None:
+                        break
                     slot_stream[s] = st
                     slot_ticket[s] = next_ticket
                     next_ticket += 1
                     join.append((s, st))
+            if not join and not busy:
+                continue  # idle: nothing admitted, nothing in flight
             if join:
                 t0 = time.perf_counter()
                 self._admit_stream_windows(join, topts)
                 self.stats["admit_s"] += time.perf_counter() - t0
-            if any(s is not None for s in slot_stream):
+            if any(st is not None for st in slot_stream):
                 t0 = time.perf_counter()
                 new_snap = (list(slot_stream), list(slot_ticket),
                             self._stream_chunk_snapshot(topts))
@@ -719,21 +762,21 @@ class SlotEngine:
                     if (st is None or active[s] or slot_stream[s] is not st
                             or slot_ticket[s] != tick_map[s]):
                         continue
-                    done = self._advance_stream(s, st, pulled, topts, temps)
                     slot_stream[s] = None
-                    if done:
-                        st["done"] = True
-                    else:
-                        pending.append(st)
+                    finish(s, st, pulled)
             snap = new_snap
             self.stats["rounds"] += 1
-        return [self._stream_output(st) for st in streams]
 
     def warmup(self, options=None, seconds: float = 2.0) -> "SlotEngine":
         """Run every serving shape once before taking traffic: one
         transcribe_streams run per admission bucket size up to n_slots (and
         n_slots itself), so the first request meets warm kernel builds and
-        allocator pools."""
+        allocator pools. A beam engine's default options decode at its beam
+        width."""
+        if options is None and getattr(self, "beam_size", None):
+            from ..pipeline.transcribe import TranscribeOptions
+
+            options = TranscribeOptions(beam_size=self.beam_size)
         audio = np.zeros(max(1, int(16000 * seconds)), np.int16)
         ks = sorted({b for b in self._ADMIT_BUCKETS if b <= self.n_slots} | {self.n_slots})
         for k in ks:
@@ -803,7 +846,10 @@ class SlotEngine:
     def _check_stream_options(self, topts) -> None:
         if topts.beam_size or (topts.best_of or 1) != 1:
             raise ValueError("SlotEngine streams are greedy-first; beam windows belong to "
-                             "pipeline.transcribe (the beam engine is ROADMAP item 13)")
+                             "BeamSlotEngine.transcribe_streams (or pipeline.transcribe)")
+        self._check_common_stream_options(topts)
+
+    def _check_common_stream_options(self, topts) -> None:
         # The cross pools and mel windows are sized once, at construction.
         if topts.audio_ctx is not None and topts.audio_ctx != self.audio_ctx:
             raise ValueError(

@@ -15,12 +15,12 @@ allocated.
 prints one JSON line with bench.py's keys, configured by bench.py's knobs
 for its default mode (BENCH_MODEL, BENCH_BATCH, BENCH_BEAM, BENCH_KV,
 BENCH_WQ, BENCH_ENC, BENCH_DTYPE, BENCH_SECONDS), or with BENCH_MODE=engine
-for ``run_engine_benchmark`` (the SlotEngine draining staggered streams:
-BENCH_BATCH slots, BENCH_STREAMS, BENCH_CHUNK, BENCH_KV, BENCH_ENC,
-BENCH_PRESTAGED, BENCH_BUCKET, BENCH_SCHEDULE, BENCH_SECONDS). The metric
-name marks the backend (``rtf_torch_...``). What the port does not have
-yet exits non-zero naming its ROADMAP item: BENCH_MODE=spec and
-BENCH_DRAFT (item 14), BENCH_BEAM in engine mode (item 13).
+for ``run_engine_benchmark`` (the SlotEngine, or with BENCH_BEAM the
+BeamSlotEngine, draining staggered streams: BENCH_BATCH slots,
+BENCH_STREAMS, BENCH_CHUNK, BENCH_KV, BENCH_ENC, BENCH_PRESTAGED,
+BENCH_BUCKET, BENCH_SCHEDULE, BENCH_SECONDS). The metric name marks the
+backend (``rtf_torch_...``). What the port does not have yet exits
+non-zero naming its ROADMAP item: BENCH_MODE=spec and BENCH_DRAFT (item 14).
 """
 
 from __future__ import annotations
@@ -132,8 +132,7 @@ def make_serving_step(model: WhisperModel, batch: int, decode_tokens: int, kv_dt
 
 WINDOW_SEC = 30.0
 _WAITS_FOR = {"spec": "parallel/spec_engine.py and decoding/speculative.py (ROADMAP item 14)",
-              "draft": "parallel/spec_engine.py (ROADMAP item 14)",
-              "beam": "parallel/beam_engine.py (ROADMAP item 13)"}
+              "draft": "parallel/spec_engine.py (ROADMAP item 14)"}
 
 
 def card_line(device: torch.device) -> Optional[str]:
@@ -297,19 +296,23 @@ def run_engine_benchmark(
     enc_int8: bool = False,
     max_bucket: Optional[int] = None,
     schedule: Optional[str] = None,
+    beam_size: Optional[int] = None,
     device: torch.device | str = "cuda",
 ) -> dict:
     """Continuous-batching serving throughput: a ``SlotEngine`` of
-    ``n_slots`` (random ``model_name`` weights from seed 0, bf16; with
-    ``quantize`` int8 decoder weights and int8 pools) drains ``n_streams``
+    ``n_slots`` (with ``beam_size`` a ``BeamSlotEngine`` of ``n_slots``
+    groups of that many rows; random ``model_name`` weights from seed 0,
+    bf16; with ``quantize`` int8 decoder weights and int8 pools) drains
+    ``n_streams``
     (default 2 × slots) streams of ``engine_streams``: one warm-up wave,
     then timed waves until ``seconds`` are spent (at least one). RTF =
     audio seconds drained per wall second. ``prestage`` puts the PCM on the
     card before the timed run; ``enc_int8`` runs the admission encodes
     W8A8; ``max_bucket`` caps the admission buckets. The engine's memory
     guard runs at its construction. Returns bench.py's keys."""
-    from ..parallel.engine import SlotEngine
     from ..decoding.task import DecodingOptions
+    from ..parallel.beam_engine import BeamSlotEngine
+    from ..parallel.engine import SlotEngine
 
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -331,11 +334,11 @@ def run_engine_benchmark(
     buckets = None
     if max_bucket:
         buckets = tuple(b for b in (32, 16, 8, 4, 2, 1) if b <= max_bucket)
-    engine = SlotEngine(model, n_slots=n_slots, chunk_steps=chunk_steps,
-                        options=DecodingOptions(without_timestamps=False),
-                        max_new_tokens=max_new_tokens, quantize=quantize,
-                        admit_buckets=buckets,
-                        **({"schedule": schedule} if schedule else {}))
+    engine = (BeamSlotEngine if beam_size else SlotEngine)(
+        model, n_slots=n_slots, chunk_steps=chunk_steps,
+        options=DecodingOptions(without_timestamps=False, beam_size=beam_size),
+        max_new_tokens=max_new_tokens, quantize=quantize, admit_buckets=buckets,
+        **({"schedule": schedule} if schedule else {}))
     # Warm-up: a full first wave plus a refill wave, then a fresh pool.
     t0 = time.perf_counter()
     engine.transcribe_many(audios[: min(len(audios), n_slots + 16)])
@@ -359,6 +362,7 @@ def run_engine_benchmark(
     launches = {k: v - launches0[k] for k, v in kernel_launches().items()}
     return {
         "metric": f"rtf_torch_{cfg.model_type}_engine_s{n_slots}_q{n_streams}"
+        + (f"_beam{beam_size}" if beam_size else "")
         + ("_int8" if quantize else "") + ("_eint8" if enc_int8 else "")
         + ("_prestaged" if prestage else ""),
         "value": audio_done / wall,
@@ -370,6 +374,7 @@ def run_engine_benchmark(
             "n_slots": n_slots,
             "n_streams": n_streams,
             "chunk_steps": chunk_steps,
+            "beam_size": beam_size,
             "quantize": quantize,
             "enc_int8": enc_int8,
             "prestage": prestage,
@@ -382,6 +387,8 @@ def run_engine_benchmark(
             "n_results": sum(r is not None for r in results),
             "tokens_last_wave": sum(len(r.tokens) for r in results if r is not None),
             "stats": dict(engine.stats),  # the last timed wave's
+            # K7's forked rows over the timed waves' steps (the beam engine's)
+            "forks": engine.fork_stats() if beam_size else None,
             "device": str(device),
             "card": torch.cuda.get_device_name(device) if on_card else None,
             "nvidia_smi": card_line(device),
@@ -424,22 +431,23 @@ def bench_config_from_env(env: Mapping[str, str]) -> dict:
 
 def engine_config_from_env(env: Mapping[str, str]) -> dict:
     """run_engine_benchmark's keyword arguments from bench.py's knobs for
-    BENCH_MODE=engine, with its greedy engine defaults: BENCH_MODEL
-    (large-v3), BENCH_BATCH slots (64), BENCH_STREAMS (2 × slots),
-    BENCH_CHUNK (32), BENCH_KV (int8: int8 pools and decoder weights),
-    BENCH_ENC (int8 for W8A8 encodes; off by default), BENCH_PRESTAGED=1,
-    BENCH_BUCKET, BENCH_SCHEDULE, BENCH_SECONDS (120). BENCH_BEAM and
-    BENCH_DRAFT raise WhisperError naming the ROADMAP item that ports
-    them."""
-    for knob, what in (("BENCH_BEAM", "beam"), ("BENCH_DRAFT", "draft")):
-        if env.get(knob):
-            raise WhisperError(f"BENCH_MODE=engine with {knob} needs {_WAITS_FOR[what]}, "
-                               "which the port does not have yet")
+    BENCH_MODE=engine, with its engine defaults: BENCH_MODEL (large-v3),
+    BENCH_BEAM (greedy without it), BENCH_BATCH slots (64, or 32 beam
+    groups), BENCH_STREAMS (2 × slots), BENCH_CHUNK (32, or 16 with a
+    beam), BENCH_KV (int8: int8 pools and decoder weights), BENCH_ENC (int8
+    for W8A8 encodes; off by default), BENCH_PRESTAGED=1, BENCH_BUCKET,
+    BENCH_SCHEDULE, BENCH_SECONDS (120). BENCH_DRAFT raises WhisperError
+    naming the ROADMAP item that ports it."""
+    if env.get("BENCH_DRAFT"):
+        raise WhisperError(f"BENCH_MODE=engine with BENCH_DRAFT needs {_WAITS_FOR['draft']}, "
+                           "which the port does not have yet")
+    beam = env.get("BENCH_BEAM")
     return dict(
         model_name=env.get("BENCH_MODEL", "large-v3"),
-        n_slots=int(env.get("BENCH_BATCH", "64")),
+        beam_size=int(beam) if beam else None,
+        n_slots=int(env.get("BENCH_BATCH", "32" if beam else "64")),
         n_streams=int(env["BENCH_STREAMS"]) if env.get("BENCH_STREAMS") else None,
-        chunk_steps=int(env.get("BENCH_CHUNK", "32")),
+        chunk_steps=int(env.get("BENCH_CHUNK", "16" if beam else "32")),
         quantize=env.get("BENCH_KV", "int8") == "int8",
         seconds=int(env.get("BENCH_SECONDS", "120")),
         prestage=env.get("BENCH_PRESTAGED", "") == "1",
