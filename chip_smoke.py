@@ -156,8 +156,10 @@ then exits non-zero without the final "ok" line:
    engine's model; then transcribe_streams over a 35 s and an 8 s clip
    gives pipeline.transcribe's segments. On the card the ragged K5 (float)
    and K4 (int8) must have launched, and the overlapped schedule runs under
-   torch.cuda.set_sync_debug_mode: it must make no synchronizing CUDA call
-   (its harvest pulls wait on CUDA events, which that mode does not flag).
+   torch.cuda.set_sync_debug_mode with its stages recorded (engine.spans):
+   it must make no synchronizing CUDA call (its harvest pulls wait on CUDA
+   events, which that mode does not flag), and its recorded admission
+   buckets must hold each stream's window once.
 22. float engine: phase 5's large-v3 bf16 model, transcribe_streams with 16
    slots (bf16 pools, K5 reading each slot's n_past in device memory) over
    phase 17's WAV and three cuts of it, windows of up to 64 tokens at t=0,
@@ -2603,17 +2605,26 @@ def phase_engine_parity(card: str) -> None:
                 eng = SlotEngine(model, n_slots=2, options=opts, chunk_steps=4,
                                  quantize=quantize, schedule=sched)
                 watch = dev == "cuda" and sched == "overlapped"
+                eng.spans.record(watch)  # the stages' record must not wait either
                 t0 = time.perf_counter()
                 with host_waits(watch) as waits:
                     got = [r.tokens for r in eng.transcribe_many(audios)]
                 wall = time.perf_counter() - t0
                 if watch:
+                    spans = eng.spans.drain()
+                    buckets = [sp for sp in spans if sp.name == "engine.admit.bucket"]
+                    held = sum(len(b.ids) for b in buckets)
                     log(f"[engine-parity] {dev} {mode} {sched}: {len(waits)} synchronizing "
                         f"CUDA calls besides the harvest pulls{': ' if waits else ''}"
-                        f"{', '.join(waits)}")
+                        f"{', '.join(waits)}; {len(spans)} spans recorded, {held} windows "
+                        f"in {len(buckets)} buckets")
                     if waits:
                         raise AssertionError(f"the overlapped engine waited on the card outside "
                                              f"its harvest pulls at {waits}")
+                    if not held == eng.stats["encode_windows"] == len(audios):
+                        raise AssertionError(f"the recorded buckets hold {held} windows and "
+                                             f"encode_windows reads {eng.stats['encode_windows']}"
+                                             f", not one a stream ({len(audios)})")
                 if ref is None:
                     ref = [_engine_reference(eng, a) for a in audios]
                 log(f"[engine-parity] {dev} {mode} {sched}: {len(audios)} streams on 2 slots, "

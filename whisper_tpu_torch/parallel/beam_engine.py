@@ -251,11 +251,14 @@ class BeamSlotEngine(SlotEngine):
         self._check_common_stream_options(topts)
 
     def _stream_chunk_snapshot(self, topts) -> _HostCopy:
-        """Run one decode chunk and start the copy of the harvest arrays."""
-        self.steps_run += _decode_chunk_beam(
+        """Run one decode chunk, count its steps (``decode_steps``) and start
+        the copy of the harvest arrays."""
+        ran = _decode_chunk_beam(
             self.model.decoder, self._state, self._cross_pool_k, self._cross_pool_v,
             self.sup_mask, self.blank_mask, self.chunk_steps, self.beam_size,
             not topts.without_timestamps, self.max_initial_index)
+        self.steps_run += ran
+        self.spans.count("decode_steps", ran)
         return _beam_snapshot(self._state)
 
     def _stream_result(self, s: int, pulled) -> DecodingResult:
@@ -292,7 +295,10 @@ class BeamSlotEngine(SlotEngine):
     def fork_stats(self) -> dict:
         """Decode steps run since the pool was made, the forked rows (K7's
         copies) summed over them, and the most in one step. Reads the
-        device counters: a wait on the card."""
+        device counters: a wait on the card. The steps are ``steps_run``,
+        not ``stats["decode_steps"]``: they must share the fork counters'
+        lifetime, the pool's, while ``stats`` restarts with each run of a
+        scheduler."""
         total, most = (self._state.forks.tolist() if self._state is not None else (0, 0))
         return {"steps": self.steps_run, "forked_rows": total, "max_forked_rows": most,
                 "rows": (self.n_slots + 1) * self.beam_size}

@@ -36,7 +36,6 @@ ROADMAP item 16.
 from __future__ import annotations
 
 import dataclasses
-import time
 from types import SimpleNamespace
 from typing import List, Optional, Sequence
 
@@ -53,6 +52,7 @@ from ..io.vocab import device_special_ids
 from ..model.decoder import KVCache, decode_step, init_cache
 from ..model.encoder import encode
 from ..model.quant import QuantKV, fuse_decoder_qkv, init_quant_cache
+from ..utils.logging import StageTimers
 
 SCHEDULES = ("pipelined", "eager", "predictive", "overlapped")
 
@@ -124,17 +124,18 @@ class _HostCopy:
 
 @torch.inference_mode()
 def _decode_chunk(decoder, state: EngineState, cross_k, cross_v, sup_mask, blank_mask,
-                  steps: int, use_timestamps: bool, max_initial_index: Optional[int]) -> None:
+                  steps: int, use_timestamps: bool, max_initial_index: Optional[int]) -> int:
     """Up to ``steps`` greedy steps of every slot, in place; the loop stops
     once no row is active (read a step late, see the module's note).
     Inactive rows are frozen: they decode EOT at their position and advance
-    nothing."""
+    nothing. Returns the steps run."""
     v = decoder.cfg.n_vocab
     eot, beg, not_, _ = device_special_ids(v)
     st = state
     rows = torch.arange(st.logits.shape[0], device=st.logits.device)
     last_cap = st.tokens_out.shape[1] - 1
     flag = None  # the previous step's "any row active", on its way to the host
+    ran = 0
     for _ in range(steps):
         if flag is not None and flag.ready() and not flag.get()[0]:
             break
@@ -167,6 +168,8 @@ def _decode_chunk(decoder, state: EngineState, cross_k, cross_v, sup_mask, blank
         st.last_tok = torch.where(active, nxt, st.last_tok)
         st.last_ts = torch.where(is_ts, nxt, st.last_ts)
         flag = _HostCopy([st.active.any()[None]])
+        ran += 1
+    return ran
 
 
 @torch.inference_mode()
@@ -271,6 +274,8 @@ class SlotEngine:
                 "encode/prefill behind the in-flight decode chunk and install by scatter as "
                 "slots free)")
         self.schedule = schedule
+        # the worker's stages: their seconds and the counters are ``stats``
+        self.spans = StageTimers()
         self.cfg = model.config
         self.vocab = model.vocab
         self.device = model.device
@@ -316,6 +321,30 @@ class SlotEngine:
         self._cross_pool_k = None  # lazily sized (L, S, H, D, Ta)
         self._cross_pool_v = None
         self._state: Optional[EngineState] = None
+
+    @property
+    def stats(self) -> dict:
+        """The running totals of the worker's stages and counters: seconds
+        as ``<stage>_s`` (admit, chunk, pull, harvest, ...), ``rounds``,
+        ``decode_steps`` (the steps the chunks ran), ``encode_windows``,
+        ``encode_rows`` and ``encode_buckets`` (the admission buckets' real
+        windows, their rows with padding, and the buckets). Each run of a
+        scheduler starts a fresh dict."""
+        return self.spans.totals
+
+    @stats.setter
+    def stats(self, value: dict) -> None:
+        self.spans.totals = value
+
+    def _bucket_stage(self, ids: Sequence[int], bucket: int, total=None):
+        """The stage of one admission bucket that holds the windows of the
+        requests ``ids`` in ``bucket`` rows; counts its windows, rows and
+        itself."""
+        sp = self.spans
+        sp.count("encode_windows", len(ids))
+        sp.count("encode_rows", bucket)
+        sp.count("encode_buckets")
+        return sp.stage("engine.admit.bucket", total, ids=ids, size=bucket)
 
     def _check_hbm_budget(self, pool_ctx: Optional[int] = None) -> None:
         """config.check_serving_hbm over this engine's geometry (the slot pool
@@ -400,25 +429,22 @@ class SlotEngine:
             last_ts=full(-1, torch.long), max_new_row=full(self.max_new, torch.int32),
             no_speech=full(0.0, torch.float32))
 
-    def _admit_many(self, slots: Sequence[int], audios: Sequence) -> None:
-        """Admit several streams with shared encode/prefill calls, one bucket
-        at a time, without waiting on the card (a bucket's payload is freed
-        once its install is enqueued, and the next bucket reuses its memory
-        in stream order); phase sub-timers land in ``self.stats`` when
-        present."""
-        stats = getattr(self, "stats", None)
+    def _admit_many(self, slots: Sequence[int], audios: Sequence, ids: Sequence[int]) -> None:
+        """Admit several streams (requests ``ids``) with shared
+        encode/prefill calls, one bucket at a time, without waiting on the
+        card (a bucket's payload is freed once its install is enqueued, and
+        the next bucket reuses its memory in stream order); each bucket's
+        windows and install add to ``stats``' stage_s and install_s."""
+        sp = self.spans
         i = 0
         while i < len(slots):
             bucket = self._bucket_for(len(slots) - i)
             n = min(bucket, len(slots) - i)
-            t0 = time.perf_counter()
-            wins = self._window_batch(audios[i: i + n], bucket)
-            t1 = time.perf_counter()
-            self._install_bucket(list(slots[i: i + n]), wins, bucket)
-            t2 = time.perf_counter()
-            if stats is not None:
-                stats["stage_s"] = stats.get("stage_s", 0.0) + (t1 - t0)
-                stats["install_s"] = stats.get("install_s", 0.0) + (t2 - t1)
+            with self._bucket_stage(ids[i: i + n], bucket):
+                with sp.stage("engine.stage", "stage_s"):
+                    wins = self._window_batch(audios[i: i + n], bucket)
+                with sp.stage("engine.install", "install_s"):
+                    self._install_bucket(list(slots[i: i + n]), wins, bucket)
             i += n
 
     def _install_bucket(self, slot_list, wins, bucket: int, tokens=None, lengths=None,
@@ -492,6 +518,19 @@ class SlotEngine:
 
     # -- the scheduler loop --
 
+    def _pull_and_free(self, snap, slot_req: list, results: list) -> None:
+        """Read a round's snapshot (its wait on the card) and free each slot
+        whose request finished there, with its result in ``results``."""
+        req_map, arrs = snap
+        with self.spans.stage("engine.pull", "pull_s"):
+            pulled = arrs.get()
+        active = pulled[0]
+        with self.spans.stage("engine.finish", "harvest_s"):
+            for s in range(self.n_slots):
+                if req_map[s] >= 0 and not active[s] and slot_req[s] == req_map[s]:
+                    results[req_map[s]] = self._stream_result(s, pulled)
+                    slot_req[s] = -1
+
     @torch.inference_mode()
     def transcribe_many(self, audios: Sequence) -> List[DecodingResult]:
         """Drain a queue of independent 30 s-or-shorter streams (numpy f32 or
@@ -500,7 +539,7 @@ class SlotEngine:
         pipelined one round deep: after enqueuing chunk N the host harvests
         chunk N-1's snapshot, admits into the slots it freed, and only then
         waits on N's snapshot next round. Phase wall times accumulate in
-        ``self.stats`` (admit / chunk / pull seconds, rounds)."""
+        ``self.stats`` (admit / chunk / pull / harvest seconds, rounds)."""
         # a prior transcribe_streams/warmup re-derived the rule masks from
         # ITS TranscribeOptions; this path decodes with the constructor's
         self.sup_mask, self.blank_mask, self.max_initial_index = self._option_masks
@@ -517,17 +556,7 @@ class SlotEngine:
         # chunks (schedule "predictive"); EOT can finish it earlier.
         min_rounds = max(1, -(-self.max_new // self.chunk_steps))
         rounds_left = [0] * self.n_slots
-
-        def pull_and_free(snap):
-            req_map, arrs = snap
-            t0 = time.perf_counter()
-            pulled = arrs.get()
-            active = pulled[0]
-            self.stats["pull_s"] += time.perf_counter() - t0
-            for s in range(self.n_slots):
-                if req_map[s] >= 0 and not active[s] and slot_req[s] == req_map[s]:
-                    results[req_map[s]] = self._stream_result(s, pulled)
-                    slot_req[s] = -1
+        sp = self.spans
 
         while queue or any(r >= 0 for r in slot_req) or snap is not None:
             if snap is not None and queue and (
@@ -535,7 +564,7 @@ class SlotEngine:
                     or (self.schedule == "predictive"
                         and any(slot_req[s] >= 0 and rounds_left[s] <= 0
                                 for s in range(self.n_slots)))):
-                pull_and_free(snap)
+                self._pull_and_free(snap, slot_req, results)
                 snap = None
                 self.stats["eager_rounds"] += 1
             join_slots, join_audios = [], []
@@ -546,21 +575,20 @@ class SlotEngine:
                     join_audios.append(audio)
                     slot_req[s] = idx
             if join_slots:
-                t0 = time.perf_counter()
-                self._admit_many(join_slots, join_audios)
-                self.stats["admit_s"] += time.perf_counter() - t0
+                with sp.stage("engine.admit", "admit_s"):
+                    self._admit_many(join_slots, join_audios,
+                                     [slot_req[s] for s in join_slots])
                 for s in join_slots:
                     rounds_left[s] = min_rounds
             if any(r >= 0 for r in slot_req):
-                t0 = time.perf_counter()
-                new_snap = (list(slot_req), self._stream_chunk_snapshot(self.options))
-                self.stats["chunk_s"] += time.perf_counter() - t0
+                with sp.stage("engine.chunk", "chunk_s"):
+                    new_snap = (list(slot_req), self._stream_chunk_snapshot(self.options))
                 for s in range(self.n_slots):
                     rounds_left[s] -= 1
             else:
                 new_snap = None
             if snap is not None:
-                pull_and_free(snap)
+                self._pull_and_free(snap, slot_req, results)
             snap = new_snap
             self.stats["rounds"] += 1
         return results  # type: ignore[return-value]
@@ -584,6 +612,7 @@ class SlotEngine:
         staged = None  # payload dict + "pending": [(row, req_idx)]
         min_rounds = max(1, -(-self.max_new // self.chunk_steps))
         rounds_left = [0] * self.n_slots
+        sp = self.spans
 
         def stage_next():
             n = min(len(queue), self.n_slots, self._ADMIT_BUCKETS[0])
@@ -592,24 +621,12 @@ class SlotEngine:
             bucket = self._bucket_for(n)
             n = min(bucket, n)
             items = [queue.pop() for _ in range(n)]
-            t0 = time.perf_counter()
-            wins = self._window_batch([a for _, a in items], bucket)
-            st = self._encode_bucket(wins, bucket)
-            self.stats["stage_s"] += time.perf_counter() - t0
+            with self._bucket_stage([idx for idx, _a in items], bucket, "stage_s"):
+                wins = self._window_batch([a for _, a in items], bucket)
+                st = self._encode_bucket(wins, bucket)
             self.stats["staged_buckets"] += 1
             st["pending"] = [(row, idx) for row, (idx, _a) in enumerate(items)]
             return st
-
-        def pull_and_free(snap):
-            req_map, arrs = snap
-            t0 = time.perf_counter()
-            pulled = arrs.get()
-            active = pulled[0]
-            self.stats["pull_s"] += time.perf_counter() - t0
-            for s in range(self.n_slots):
-                if req_map[s] >= 0 and not active[s] and slot_req[s] == req_map[s]:
-                    results[req_map[s]] = self._stream_result(s, pulled)
-                    slot_req[s] = -1
 
         def consume_staged():
             nonlocal staged
@@ -618,9 +635,8 @@ class SlotEngine:
                 if not free:
                     break
                 take = staged["pending"][: len(free)]
-                t0 = time.perf_counter()
-                self._install_rows(staged, free[: len(take)], [row for row, _ in take])
-                self.stats["install_s"] += time.perf_counter() - t0
+                with sp.stage("engine.install", "install_s"):
+                    self._install_rows(staged, free[: len(take)], [row for row, _ in take])
                 for s, (_row, idx) in zip(free, take):
                     slot_req[s] = idx
                     rounds_left[s] = min_rounds
@@ -638,15 +654,14 @@ class SlotEngine:
             #    finished: refills then land before this round's chunk
             if snap is not None and (staged is not None or queue) and any(
                     slot_req[s] >= 0 and rounds_left[s] <= 0 for s in range(self.n_slots)):
-                pull_and_free(snap)
+                self._pull_and_free(snap, slot_req, results)
                 snap = None
                 self.stats["eager_rounds"] += 1
                 consume_staged()
             # 1. the decode chunk first: the card stays fed through the pull
             if any(r >= 0 for r in slot_req):
-                t0 = time.perf_counter()
-                new_snap = (list(slot_req), self._stream_chunk_snapshot(self.options))
-                self.stats["chunk_s"] += time.perf_counter() - t0
+                with sp.stage("engine.chunk", "chunk_s"):
+                    new_snap = (list(slot_req), self._stream_chunk_snapshot(self.options))
                 for s in range(self.n_slots):
                     rounds_left[s] -= 1
             else:
@@ -656,7 +671,7 @@ class SlotEngine:
                 staged = stage_next()
             # 3. harvest the previous round's snapshot
             if snap is not None:
-                pull_and_free(snap)
+                self._pull_and_free(snap, slot_req, results)
             snap = new_snap
             # 4. install staged rows into the slots the harvest freed
             consume_staged()
@@ -716,56 +731,66 @@ class SlotEngine:
         copy is read, and each slot whose window finished there is freed
         and handed to ``finish(slot, stream, pulled)``. ``slot_stream`` (one
         entry a slot, None when free) is the caller's, so a caller whose
-        loop dies still sees the streams in flight. Adds to ``self.stats``'
-        admit_s, chunk_s, pull_s and rounds."""
+        loop dies still sees the streams in flight. Each round is a stage
+        (``engine.round``) holding ``engine.admit``, ``engine.chunk``,
+        ``engine.pull`` and ``engine.finish``, which add to ``self.stats``'
+        admit_s, chunk_s, pull_s and harvest_s; the caller's hooks add their
+        own stages inside the round."""
         # Admission tickets guard the one-round-late harvest: a stale
         # snapshot of a slot that a stream's next window has re-entered must
         # not be harvested as the new window's result.
         slot_ticket = [0] * self.n_slots
         next_ticket = 1
         snap = None
+        sp = self.spans
         while True:
-            busy = snap is not None or any(st is not None for st in slot_stream)
-            if not keep_going(busy):
-                break
-            join = []
-            for s in range(self.n_slots):
-                if slot_stream[s] is None:
-                    st = next_stream()
-                    if st is None:
-                        break
-                    slot_stream[s] = st
-                    slot_ticket[s] = next_ticket
-                    next_ticket += 1
-                    join.append((s, st))
-            if not join and not busy:
-                continue  # idle: nothing admitted, nothing in flight
-            if join:
-                t0 = time.perf_counter()
-                self._admit_stream_windows(join, topts)
-                self.stats["admit_s"] += time.perf_counter() - t0
-            if any(st is not None for st in slot_stream):
-                t0 = time.perf_counter()
-                new_snap = (list(slot_stream), list(slot_ticket),
-                            self._stream_chunk_snapshot(topts))
-                self.stats["chunk_s"] += time.perf_counter() - t0
-            else:
-                new_snap = None
-            if snap is not None:
-                stream_map, tick_map, arrs = snap
-                t0 = time.perf_counter()
-                pulled = arrs.get()
-                active = pulled[0]
-                self.stats["pull_s"] += time.perf_counter() - t0
+            with sp.stage("engine.round", None):
+                busy = snap is not None or any(st is not None for st in slot_stream)
+                if not keep_going(busy):
+                    break
+                join = []
                 for s in range(self.n_slots):
-                    st = stream_map[s]
-                    if (st is None or active[s] or slot_stream[s] is not st
-                            or slot_ticket[s] != tick_map[s]):
-                        continue
-                    slot_stream[s] = None
+                    if slot_stream[s] is None:
+                        st = next_stream()
+                        if st is None:
+                            break
+                        slot_stream[s] = st
+                        slot_ticket[s] = next_ticket
+                        next_ticket += 1
+                        join.append((s, st))
+                if not join and not busy:
+                    continue  # idle: nothing admitted, nothing in flight
+                if join:
+                    with sp.stage("engine.admit", "admit_s"):
+                        self._admit_stream_windows(join, topts)
+                if any(st is not None for st in slot_stream):
+                    with sp.stage("engine.chunk", "chunk_s"):
+                        new_snap = (list(slot_stream), list(slot_ticket),
+                                    self._stream_chunk_snapshot(topts))
+                else:
+                    new_snap = None
+                if snap is not None:
+                    self._harvest_streams(snap, slot_stream, slot_ticket, finish)
+                snap = new_snap
+                self.stats["rounds"] += 1
+
+    def _harvest_streams(self, snap, slot_stream: list, slot_ticket: list, finish) -> None:
+        """Read a round's snapshot (its wait on the card), then free each slot
+        whose window finished there and hand it to ``finish``; one
+        ``engine.window_done`` stage a window, with its request's id."""
+        stream_map, tick_map, arrs = snap
+        with self.spans.stage("engine.pull", "pull_s"):
+            pulled = arrs.get()
+        active = pulled[0]
+        with self.spans.stage("engine.finish", "harvest_s"):
+            for s in range(self.n_slots):
+                st = stream_map[s]
+                if (st is None or active[s] or slot_stream[s] is not st
+                        or slot_ticket[s] != tick_map[s]):
+                    continue
+                slot_stream[s] = None
+                with self.spans.stage("engine.window_done", None, ids=(st["idx"],)):
                     finish(s, st, pulled)
-            snap = new_snap
-            self.stats["rounds"] += 1
 
     def warmup(self, options=None, seconds: float = 2.0) -> "SlotEngine":
         """Run every serving shape once before taking traffic: one
@@ -792,9 +817,8 @@ class SlotEngine:
         result = self._stream_result(s, pulled)
         self.stats["windows"] += 1
         if gate_needs_fallback(result, topts):
-            t1 = time.perf_counter()
-            result = self._fallback_ladder(st, result, topts, temps)
-            self.stats["fallback_s"] += time.perf_counter() - t1
+            with self.spans.stage("engine.fallback", "fallback_s", ids=(st["idx"],)):
+                result = self._fallback_ladder(st, result, topts, temps)
             self.stats["fallbacks"] += 1
         enc_arg = self._slot_enc(s) if topts.word_timestamps else None
         segments, new_seek, new_tokens, reset = finish_window(
@@ -859,11 +883,12 @@ class SlotEngine:
                 f"pipeline.transcribe (audio_ctx='auto' per-window bucketing)")
 
     def _stream_chunk_snapshot(self, topts) -> _HostCopy:
-        """Run one decode chunk and start the copy of the harvest arrays
-        (read one round later)."""
-        _decode_chunk(self.model.decoder, self._state, self._cross_pool_k, self._cross_pool_v,
-                      self.sup_mask, self.blank_mask, self.chunk_steps,
-                      not topts.without_timestamps, self.max_initial_index)
+        """Run one decode chunk, count its steps (``decode_steps``) and start
+        the copy of the harvest arrays (read one round later)."""
+        self.spans.count("decode_steps", _decode_chunk(
+            self.model.decoder, self._state, self._cross_pool_k, self._cross_pool_v,
+            self.sup_mask, self.blank_mask, self.chunk_steps, not topts.without_timestamps,
+            self.max_initial_index))
         return _snapshot(self._state)
 
     def _stream_result(self, s: int, pulled) -> DecodingResult:
@@ -915,9 +940,10 @@ class SlotEngine:
             if not self.cfg.is_multilingual:
                 language = "en"
             else:
-                enc = self.model.encoder(mel_window(mel, seek_start, self._n_frames)[None])
-                langs, _ = detect_language(self.model.decoder, self.vocab, enc.cross_k,
-                                           enc.cross_v)
+                with self.spans.stage("engine.detect_language", None, ids=(idx,)):
+                    enc = self.model.encoder(mel_window(mel, seek_start, self._n_frames)[None])
+                    langs, _ = detect_language(self.model.decoder, self.vocab, enc.cross_k,
+                                               enc.cross_v)
                 language = langs[0]
 
         all_tokens: List[int] = []
@@ -952,41 +978,47 @@ class SlotEngine:
 
     @torch.inference_mode()
     def _admit_stream_windows(self, join, topts) -> None:
-        """Admit (slot, stream) pairs: slice each stream's current window from
-        its mel, encode and prefill bucket by bucket with per-row prompts,
-        and install. Per-row budgets follow the offline clamp sample_len <=
-        n_text_ctx - prompt + 1."""
-        dev = self.device
+        """Admit (slot, stream) pairs bucket by bucket, each bucket a stage
+        (``engine.admit.bucket``) with its requests' ids."""
         i = 0
         while i < len(join):
             bucket = self._bucket_for(len(join) - i)
-            n = min(bucket, len(join) - i)
-            group = join[i: i + n]
-            wins = torch.stack([mel_window(st["mel"], st["seek"], self._n_frames)
-                                for _, st in group])
-            if n < bucket:
-                wins = torch.cat([wins, wins.new_zeros((bucket - n,) + wins.shape[1:])])
-            rows, lens, sots, caps = [], [], [], []
-            for _, st in group:
-                task = DecodingTask(self.cfg, self.vocab, self._window_options(st, topts, 0.0))
-                toks = np.array(task.initial_tokens, np.int64)
-                rows.append(toks)
-                lens.append(len(toks))
-                sots.append(task.sot_index)
-                caps.append(max(0, min(task.sample_len, self.max_new,
-                                       self.cfg.n_text_ctx - len(toks) + 1)))
-            w = -(-max(len(r) for r in rows) // 32) * 32
-            mat = np.zeros((bucket, w), np.int64)
-            for j, r in enumerate(rows):
-                mat[j, : len(r)] = r
+            group = join[i: i + bucket]
+            with self._bucket_stage([st["idx"] for _, st in group], bucket):
+                self._admit_stream_bucket(group, bucket, topts)
+            i += len(group)
 
-            def col(values, pad):
-                return _to_device(np.array(values + [pad] * (bucket - n), np.int64), dev)
+    def _admit_stream_bucket(self, group, bucket: int, topts) -> None:
+        """Slice each stream's current window from its mel, encode and
+        prefill the bucket with per-row prompts, and install. Per-row
+        budgets follow the offline clamp sample_len <= n_text_ctx - prompt
+        + 1."""
+        dev = self.device
+        n = len(group)
+        wins = torch.stack([mel_window(st["mel"], st["seek"], self._n_frames)
+                            for _, st in group])
+        if n < bucket:
+            wins = torch.cat([wins, wins.new_zeros((bucket - n,) + wins.shape[1:])])
+        rows, lens, sots, caps = [], [], [], []
+        for _, st in group:
+            task = DecodingTask(self.cfg, self.vocab, self._window_options(st, topts, 0.0))
+            toks = np.array(task.initial_tokens, np.int64)
+            rows.append(toks)
+            lens.append(len(toks))
+            sots.append(task.sot_index)
+            caps.append(max(0, min(task.sample_len, self.max_new,
+                                   self.cfg.n_text_ctx - len(toks) + 1)))
+        w = -(-max(len(r) for r in rows) // 32) * 32
+        mat = np.zeros((bucket, w), np.int64)
+        for j, r in enumerate(rows):
+            mat[j, : len(r)] = r
 
-            self._install_bucket([s for s, _ in group], wins, bucket,
-                                 tokens=_to_device(mat, dev), lengths=col(lens, 1),
-                                 sot_idx=col(sots, 0), max_news=col(caps, 0))
-            i += n
+        def col(values, pad):
+            return _to_device(np.array(values + [pad] * (bucket - n), np.int64), dev)
+
+        self._install_bucket([s for s, _ in group], wins, bucket,
+                             tokens=_to_device(mat, dev), lengths=col(lens, 1),
+                             sot_idx=col(sots, 0), max_news=col(caps, 0))
 
     @torch.inference_mode()
     def _fallback_ladder(self, st: dict, t0_result: DecodingResult, topts,

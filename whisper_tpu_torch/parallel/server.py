@@ -295,8 +295,10 @@ class EngineServer:
                                           else contextlib.nullcontext()):
                 temps = eng._prepare_streams(topts)
                 eng.stats = {"admit_s": 0.0, "chunk_s": 0.0, "pull_s": 0.0,
-                             "fallback_s": 0.0, "rounds": 0, "windows": 0,
-                             "fallbacks": 0, "requests": 0}
+                             "fallback_s": 0.0, "ingest_s": 0.0, "init_s": 0.0,
+                             "harvest_s": 0.0, "rounds": 0, "windows": 0,
+                             "fallbacks": 0, "requests": 0, "decode_steps": 0,
+                             "encode_windows": 0, "encode_rows": 0, "encode_buckets": 0}
                 # transcribe_streams' scheduler, fed by the live queue
                 eng._schedule_streams(
                     topts, slot_stream,
@@ -335,31 +337,33 @@ class EngineServer:
         queued requests into ``raw`` (host memory only: device staging waits
         for a free slot, so queued bursts cannot exhaust device memory),
         blocking up to ``poll_s`` only when idle, and drop the cancelled or
-        expired requests that wait."""
-        busy = busy or bool(raw or pending)
-        # drain=False means FAST shutdown: exit even while streams are
-        # mid-flight (between-window continuations must not be re-admitted
-        # for hours) — _run's finally cancels their futures
-        if self._stop.is_set() and (not self._drain or (not busy and self._queue.empty())):
-            return False
-        try:
-            while True:
-                item = self._queue.get(block=not busy, timeout=self._poll_s)
-                if self._stop.is_set() and not self._drain:
-                    item[1].cancel()
-                    continue
-                raw.append(item)
-                busy = True
-        except queue.Empty:
-            pass
-        # sweep cancelled/expired WAITING requests every round — not only at
-        # slot-admission pop — so a queued request's cancel() or deadline
-        # resolves promptly even while long streams hold every slot for
-        # minutes (and stops counting toward the max_queue backpressure)
-        raw[:] = [it for it in raw if not self._pop_cancelled(it[1], it[6])]
-        pending[:] = [st for st in pending
-                      if not self._pop_cancelled(st["future"], st.get("deadline"))]
-        return True
+        expired requests that wait. A stage (``server.ingest``, ``ingest_s``),
+        its wait included."""
+        with self.engine.spans.stage("server.ingest", "ingest_s"):
+            busy = busy or bool(raw or pending)
+            # drain=False means FAST shutdown: exit even while streams are
+            # mid-flight (between-window continuations must not be re-admitted
+            # for hours) — _run's finally cancels their futures
+            if self._stop.is_set() and (not self._drain or (not busy and self._queue.empty())):
+                return False
+            try:
+                while True:
+                    item = self._queue.get(block=not busy, timeout=self._poll_s)
+                    if self._stop.is_set() and not self._drain:
+                        item[1].cancel()
+                        continue
+                    raw.append(item)
+                    busy = True
+            except queue.Empty:
+                pass
+            # sweep cancelled/expired WAITING requests every round — not only at
+            # slot-admission pop — so a queued request's cancel() or deadline
+            # resolves promptly even while long streams hold every slot for
+            # minutes (and stops counting toward the max_queue backpressure)
+            raw[:] = [it for it in raw if not self._pop_cancelled(it[1], it[6])]
+            pending[:] = [st for st in pending
+                          if not self._pop_cancelled(st["future"], st.get("deadline"))]
+            return True
 
     def _next_stream(self, pending: list, raw: list) -> Optional[dict]:
         """The next stream for a free slot: window continuations first, then
@@ -391,7 +395,7 @@ class EngineServer:
             done = self.engine._advance_stream(s, st, pulled, self.topts, temps)
         except Exception as e:  # noqa: BLE001
             self._record_latency(st)
-            st["future"].set_exception(e)
+            self._resolve(st, e)
             return
         if st.get("on_segment") is not None:
             for seg in st["segments"][st["emitted"]:]:
@@ -402,14 +406,24 @@ class EngineServer:
             st["emitted"] = len(st["segments"])
         if done:
             self._record_latency(st)
-            st["future"].set_result(self.engine._stream_output(st))
+            self._resolve(st)
         else:
             pending.append(st)
 
+    def _resolve(self, st: dict, error: Optional[BaseException] = None) -> None:
+        """Resolve a stream's future with its output, or ``error``, in a
+        stage (``server.resolve``): the future's done callbacks run in it."""
+        with self.engine.spans.stage("server.resolve", None, ids=(st["idx"],)):
+            if error is not None:
+                st["future"].set_exception(error)
+            else:
+                st["future"].set_result(self.engine._stream_output(st))
+
     def _start_request(self, item) -> Optional[dict]:
         """Initialize one raw request (device mel staging, language detect,
-        prompt tokenization). Returns the stream dict, or None when the
-        request resolved immediately (bad input / shorter than one hop)."""
+        prompt tokenization) in a stage (``server.start_request``,
+        ``init_s``). Returns the stream dict, or None when the request
+        resolved immediately (bad input / shorter than one hop)."""
         audio, fut, on_seg, lang, prompt, task, deadline, t_sub = item
         if not fut.set_running_or_notify_cancel():
             return None
@@ -423,7 +437,8 @@ class EngineServer:
                 initial_prompt=(prompt if prompt is not None
                                 else topts.initial_prompt))
         try:
-            st = eng._init_stream(self._idx, audio, st_topts)
+            with eng.spans.stage("server.start_request", "init_s", ids=(self._idx,)):
+                st = eng._init_stream(self._idx, audio, st_topts)
         except Exception as e:  # noqa: BLE001 — bad request only
             fut.set_exception(e)
             return None
