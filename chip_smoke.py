@@ -246,6 +246,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import http.client
 import io
 import json
@@ -279,6 +280,7 @@ from whisper_tpu_torch.io.vocab import make_vocab
 from whisper_tpu_torch.io.wav import load_wav, load_wav_bytes, write_wav
 from whisper_tpu_torch.kernels import beam_gather, build
 from whisper_tpu_torch.kernels import fused_quant
+from whisper_tpu_torch.kernels.launches import COUNTERS
 from whisper_tpu_torch.kernels.cross_attention_int8 import (cross_attention_int8,
                                                             cross_attention_int8_plan,
                                                             cross_attention_int8_reference)
@@ -301,7 +303,7 @@ from whisper_tpu_torch.model.params import params_to_ggml
 from whisper_tpu_torch.model.quant import (QuantKV, init_quant_cache, qk_logits, quantize_act,
                                            quantize_decoder_weights, quantize_kv)
 from whisper_tpu_torch.parallel.beam_engine import BeamSlotEngine
-from whisper_tpu_torch.parallel.engine import SCHEDULES, SlotEngine
+from whisper_tpu_torch.parallel.engine import SCHEDULES, SlotEngine, _GraphHome, _decode_step
 from whisper_tpu_torch.parallel.server import EngineServer, make_http_server
 from whisper_tpu_torch.parallel.serving import BatchTranscriber
 from whisper_tpu_torch.pipeline.chunked import transcribe_chunked
@@ -1170,14 +1172,8 @@ def _leaves(tree, prefix=""):
 
 
 def _zero_launches() -> None:
-    flash_attention.launches = flash_attention.f32_launches = flash_attention.int8_launches = 0
-    flash_sdpa.bwd_launches = 0
-    fused_quant.act_quant.launches = fused_quant.ln_quant.launches = 0
-    fused_quant.gelu_quant.launches = 0
-    cross_attention_int8.launches = cross_attention_int8.masked_launches = 0
-    cross_attention_int8.ragged_launches = 0
-    cached_attention.launches = cached_attention.ragged_launches = 0
-    beam_gather.permute_rows_multi.launches = beam_gather.cow_copy_rows.launches = 0
+    for fn, attr in COUNTERS.values():
+        setattr(fn, attr, 0)
 
 
 def _read_launches() -> dict:
@@ -2582,13 +2578,28 @@ def host_waits(on: bool):
     found.extend(sorted(seen))
 
 
+def _graph_steps(tag: str, stats: dict) -> int:
+    """Check that the engine on the card replayed its step graph at every
+    step but the eager one before each capture; returns the decode steps."""
+    steps, graphed, captures = (stats["decode_steps"], stats.get("graph_steps", 0),
+                                stats.get("graph_captures", 0))
+    if not (graphed > 0 and captures >= 1 and graphed == steps - captures):
+        raise AssertionError(f"{tag}: {graphed} of {steps} decode steps replayed a graph after "
+                             f"{captures} captures: every step but one a capture must be a "
+                             f"replay")
+    return steps
+
+
 def phase_engine_parity(card: str) -> None:
     """The SlotEngine on phase 4's tiny f32 checkpoint, on the CPU and on the
     card: five streams of different lengths on 2 slots (slots reused, a
     partial bucket) under all four schedules, float and int8 (int8 decoder
     weights and int8 pools: K4 at both sites), each stream's tokens the
-    device loop's on that device; then transcribe_streams over a 35 s and an
-    8 s clip gives pipeline.transcribe's segments."""
+    device loop's on that device; on the card every decode step after the
+    capture of the engine's step graph is its replay, and the ragged
+    kernel (K4's self or K5) runs once a layer a step; then
+    transcribe_streams over a 35 s and an 8 s clip gives
+    pipeline.transcribe's segments."""
     cfg, path = tiny_checkpoint()
     audios = [synthetic_audio(SAMPLE_RATE * sec, seed=40 + sec) for sec in ENGINE_PARITY_SECONDS]
     opts = DecodingOptions(sample_len=24)
@@ -2600,6 +2611,7 @@ def phase_engine_parity(card: str) -> None:
                      else base)
             mode = "int8" if quantize else "float"
             ref = None
+            steps = 0  # the engines' decode steps on the card
             _zero_launches()
             for sched in SCHEDULES:
                 eng = SlotEngine(model, n_slots=2, options=opts, chunk_steps=4,
@@ -2625,6 +2637,8 @@ def phase_engine_parity(card: str) -> None:
                         raise AssertionError(f"the recorded buckets hold {held} windows and "
                                              f"encode_windows reads {eng.stats['encode_windows']}"
                                              f", not one a stream ({len(audios)})")
+                if dev == "cuda":
+                    steps += _graph_steps(f"engine {mode} {sched}", eng.stats)
                 if ref is None:
                     ref = [_engine_reference(eng, a) for a in audios]
                 log(f"[engine-parity] {dev} {mode} {sched}: {len(audios)} streams on 2 slots, "
@@ -2638,14 +2652,17 @@ def phase_engine_parity(card: str) -> None:
                                          f"{_first_divergence(got[i], ref[i])}")
             n = _read_launches()
             ragged = n["k4_ragged"] if quantize else n["k5_ragged"]
-            if dev == "cuda" and ragged == 0:
-                raise AssertionError(f"the {mode} engine on the card launched no ragged kernel: "
+            if dev == "cuda" and not ragged == cfg.n_text_layer * steps > 0:
+                raise AssertionError(f"the {mode} engine on the card launched {ragged} ragged "
+                                     f"kernels over {steps} decode steps, not one a layer a step: "
                                      f"{n}")
             tokens[(dev, mode)] = ref
         topts = TranscribeOptions(temperature=0.0, condition_on_previous_text=True)
         longs = [synthetic_audio(SAMPLE_RATE * 35, seed=1), synthetic_audio(SAMPLE_RATE * 8, seed=3)]
         eng = SlotEngine(base, n_slots=2, chunk_steps=8)
         got = eng.transcribe_streams(longs, topts)
+        if dev == "cuda":
+            _graph_steps("engine streams", eng.stats)
         for i, (g, a) in enumerate(zip(got, longs)):
             _same_segments(f"engine streams {dev} stream {i}", transcribe(base, a, topts), g)
         log(f"[engine-parity] {dev} transcribe_streams: 35 s and 8 s clips, {eng.stats['windows']} "
@@ -2703,9 +2720,14 @@ def phase_engine_float(card: str, model) -> tuple:
             f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches {n}; {card}")
         if run == 1:
             check_path_shapes("engine-float", "the float engine's path", checked)
-        if n["k1"] == 0 or n["k5_ragged"] == 0 or n["k5"] != cfg.n_text_layer * forwards[0]:
-            raise AssertionError(f"the float engine's launches {n} over {forwards[0]} forwards: "
-                                 f"K1 and the ragged K5 must run, K5 {cfg.n_text_layer} a forward")
+        # the decoder's Python runs at a capture and not at a replay
+        steps = _graph_steps(f"engine-float run {run}", st)
+        ran = forwards[0] - st["graph_captures"] + st["graph_steps"]
+        if (n["k1"] == 0 or n["k5_ragged"] != cfg.n_text_layer * steps
+                or n["k5"] != cfg.n_text_layer * ran):
+            raise AssertionError(f"the float engine's launches {n} over {ran} forwards, "
+                                 f"{steps} of them decode steps: K1 must run, K5 "
+                                 f"{cfg.n_text_layer} a forward, ragged at each step")
         if st["windows"] < 2 * len(streams) or [r["duration"] for r in res] != [
                 len(a) / sr for a in streams]:
             raise AssertionError(f"bad streams: {st['windows']} windows, {res}")
@@ -2758,6 +2780,10 @@ def phase_engine_bench(card: str) -> dict:
     if not (n["k1"] > 0 and n["k4"] > n["k4_self"] > n["k4_ragged"] > 0):
         raise AssertionError(f"engine bench: K1, K4 cross, K4 self at the prefill and the "
                              f"ragged K4 self must each run in the timed waves: {n}")
+    steps = _graph_steps("engine bench", d["steps"])
+    if n["k4_ragged"] != PRESETS["large-v3"].n_text_layer * steps:
+        raise AssertionError(f"engine bench: {n['k4_ragged']} ragged K4 launches over {steps} "
+                             f"decode steps, not one a layer a step")
     st = d["stats"]
     if st["staged_buckets"] * ENGINE_BUCKET != 2 * ENGINE_SLOTS:
         raise AssertionError(f"engine bench: {st['staged_buckets']} admission buckets for "
@@ -2768,6 +2794,91 @@ def phase_engine_bench(card: str) -> dict:
                              f"PEAK_OVER_ESTIMATE ({PEAK_OVER_ESTIMATE}) times the guard's "
                              f"estimate {est['total']}")
     return n
+
+
+STEP_GRAPH_SLOTS, STEP_GRAPH_TOKENS = 240, 96  # the benchmark's batch cells' pool and cap
+STEP_GRAPH_STEPS = 16  # steps a turn, each turn from the same pool state
+
+
+def phase_engine_step_graph(card: str) -> dict:
+    """The int8 engine's decode step at the benchmark's batch cells' shape
+    (large-v3, random weights, int8 decoder weights, STEP_GRAPH_SLOTS slots
+    and the trash row, int8 pools, timestamp rules): every slot is filled
+    from one prefilled bucket and set at its own step of a window, then the
+    step body called eagerly and one replay of its captured graph run in
+    turns (eager, graph, graph, eager), STEP_GRAPH_STEPS steps a turn from
+    that same state: CUDA events over the turn and the host's wall time to
+    enqueue it, a step each; both give the same tokens and positions."""
+    cfg = PRESETS["large-v3"]
+    model = random_model(cfg, seed=0, dtype=torch.bfloat16, device="cuda", on_device=True)
+    model = model.with_params(quantize_decoder_weights(model.params))
+    eng = SlotEngine(model, n_slots=STEP_GRAPH_SLOTS, chunk_steps=32,
+                     max_new_tokens=STEP_GRAPH_TOKENS, quantize=True)
+    eng._prepare_streams(TranscribeOptions(temperature=0.0))
+    with torch.inference_mode():
+        audio = [synthetic_audio(SAMPLE_RATE * 25, seed=70 + i) for i in range(ENGINE_BUCKET)]
+        staged = eng._encode_bucket(eng._window_batch(audio, ENGINE_BUCKET), ENGINE_BUCKET)
+        for first in range(0, STEP_GRAPH_SLOTS, ENGINE_BUCKET):
+            eng._install_rows(staged, list(range(first, first + ENGINE_BUCKET)),
+                              list(range(ENGINE_BUCKET)))
+        del staged
+        st = eng._state
+        gen = case_generator("engine-step-graph")
+        # each slot part-way through its window, as in a wave's steady state
+        st.step[:-1] = torch.randint(0, STEP_GRAPH_TOKENS - STEP_GRAPH_STEPS - 1,
+                                     (STEP_GRAPH_SLOTS,), generator=gen,
+                                     device=gen.device).to(st.step)
+        st.n_past[:-1] += st.step[:-1]
+        fields = [f.name for f in dataclasses.fields(st)
+                  if isinstance(getattr(st, f.name), torch.Tensor)]
+        start = {name: getattr(st, name).clone() for name in fields}
+
+        def restore():
+            for name in fields:
+                getattr(st, name).copy_(start[name])
+
+        body = functools.partial(_decode_step, eng.model.decoder, st, eng._cross_pool_k,
+                                 eng._cross_pool_v, eng.sup_mask, eng.blank_mask, True,
+                                 eng.max_initial_index)
+        home = _GraphHome(eng.device)
+        restore()
+        home.warm_up(body)
+        restore()
+        graph = home.capture(body)
+
+        def turn(step):
+            restore()
+            torch.cuda.synchronize()
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            e0.record()
+            for _ in range(STEP_GRAPH_STEPS):
+                step()
+            e1.record()
+            host = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            out = (st.tokens_out.clone(), st.n_past.clone(), st.logits.clone())
+            return e0.elapsed_time(e1) / STEP_GRAPH_STEPS, host * 1e3 / STEP_GRAPH_STEPS, out
+
+        runs = {"eager": [], "graph": []}
+        outs = {}
+        for kind in ("eager", "graph", "graph", "eager"):
+            ms, host_ms, outs[kind] = turn(body if kind == "eager" else graph.replay)
+            runs[kind].append((ms, host_ms))
+    if not all(torch.equal(a, b) for a, b in zip(outs["eager"], outs["graph"])):
+        raise AssertionError("engine step graph: the replays' tokens, positions or logits differ "
+                             "from the eager steps'")
+    row = {kind: {"ms": sum(m for m, _ in r) / len(r), "host_ms": sum(h for _, h in r) / len(r)}
+           for kind, r in runs.items()}
+    log(f"[engine-step-graph] large-v3 int8, {STEP_GRAPH_SLOTS + 1} rows, pool of "
+        f"{eng.pool_ctx} positions, {STEP_GRAPH_STEPS} steps a turn in turns (eager, graph, "
+        f"graph, eager): eager {row['eager']['ms']:.4f} ms a step (host enqueue "
+        f"{row['eager']['host_ms']:.4f}), one replay {row['graph']['ms']:.4f} ms (host "
+        f"{row['graph']['host_ms']:.4f}); each turn {runs}; tokens, positions and logits equal; "
+        f"peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; {card}")
+    del graph, home, eng, model, st, start, outs
+    torch.cuda.empty_cache()
+    return row
 
 
 BEAM_PARITY_SECONDS = (2, 4, 6, 8, 10, 12)  # phase 24: six streams on 2 groups of 3 rows
@@ -3295,6 +3406,7 @@ def main() -> None:
     bench = phase_bench(card)
     greedy, beam_bench = bench["greedy-b64"], bench["beam5-b48"]
     eb = phase_engine_bench(card)
+    phase_engine_step_graph(card)
     beb = phase_beam_engine_bench(card)
     train_rows, k1b_entry = phase_train_kernels(card)
     phase_train_parity(card)

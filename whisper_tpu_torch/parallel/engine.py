@@ -18,26 +18,34 @@ admissions (``pipelined``, ``eager``, ``predictive``, ``overlapped``); they
 give the same tokens, which are the device loop's
 (``decoding.device_loop``).
 
-What differs from JAX, by design: PyTorch runs eagerly, so a chunk is a
-Python loop over steps. JAX's ``while_loop`` stops once no row is active;
+What differs from JAX, by design: a chunk is a Python loop over steps. On a
+CUDA device each step is the replay of one captured CUDA graph of the whole
+step (rules, sampling, the decoder's layers with their kernels, the state
+updates), so the host enqueues a step with one launch instead of thousands;
+the graph is captured at the first step of each rule setting on each pool,
+after that step has run eagerly, and every state field is updated in place
+so that a replay and a refill meet at the same addresses. Elsewhere the
+same step runs eagerly. JAX's ``while_loop`` stops once no row is active;
 here each step copies that flag to the host without waiting and the loop
 reads the previous step's copy once it has landed, so the chunk may run a
-step past the last active one. An inactive row is frozen (it decodes EOT
-at its unchanged position), so the extra step changes no result. The
-harvest pull waits only for the snapshot it reads (a CUDA event recorded
-after its copy), not for a chunk enqueued after it, and it is the only
-wait on the card: host arrays go to the card through pinned memory without
-a wait, and a freed admission payload's memory is reused in stream order,
-so JAX's wait for the last install before the next encode is not needed
-to keep one payload live. One CUDA stream. No mesh: tensor parallelism is
-ROADMAP item 16.
+step past the last active one. An inactive row is frozen (it decodes EOT at
+its unchanged position), so the extra step changes no result. The harvest
+pull waits only for the snapshot it reads (a CUDA event recorded after its
+copy), not for a chunk enqueued after it, and it is the only wait on the
+card: host arrays go to the card through pinned memory without a wait, and
+a freed admission payload's memory is reused in stream order, so JAX's wait
+for the last install before the next encode is not needed to keep one
+payload live. One CUDA stream (and a side stream where a graph is warmed up
+and captured). No mesh: tensor parallelism is ROADMAP item 16.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import functools
 from types import SimpleNamespace
-from typing import List, Optional, Sequence
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -49,6 +57,7 @@ from ..decoding.task import DecodingOptions, DecodingTask, _pad_to_bucket, decod
     detect_language
 from ..frontend.mel import frame_count, log_mel_spectrogram, mel_window
 from ..io.vocab import device_special_ids
+from ..kernels.launches import add_launches, kernel_launches
 from ..model.decoder import KVCache, decode_step, init_cache
 from ..model.encoder import encode
 from ..model.quant import QuantKV, fuse_decoder_qkv, init_quant_cache
@@ -123,53 +132,144 @@ class _HostCopy:
 
 
 @torch.inference_mode()
-def _decode_chunk(decoder, state: EngineState, cross_k, cross_v, sup_mask, blank_mask,
-                  steps: int, use_timestamps: bool, max_initial_index: Optional[int]) -> int:
-    """Up to ``steps`` greedy steps of every slot, in place; the loop stops
-    once no row is active (read a step late, see the module's note).
+def _decode_step(decoder, state: EngineState, cross_k, cross_v, sup_mask, blank_mask,
+                 use_timestamps: bool, max_initial_index: Optional[int]) -> None:
+    """One greedy step of every slot. Every field of ``state`` is written in
+    place and keeps its storage: a CUDA graph replays this body over fixed
+    addresses, and ``_refill_many`` scatters into the tensors it reads.
     Inactive rows are frozen: they decode EOT at their position and advance
-    nothing. Returns the steps run."""
+    nothing."""
     v = decoder.cfg.n_vocab
     eot, beg, not_, _ = device_special_ids(v)
     st = state
     rows = torch.arange(st.logits.shape[0], device=st.logits.device)
     last_cap = st.tokens_out.shape[1] - 1
+    filt = _apply_rules_device(st.logits, st.step, RuleState(st.last_tok, st.prev_tok, st.last_ts),
+                               sup_mask, blank_mask, (eot, beg, not_, v), use_timestamps,
+                               max_initial_index)
+    logprobs = torch.log_softmax(filt, dim=-1)
+    nxt = torch.argmax(filt, dim=-1)
+    step_lp = logprobs.gather(1, nxt[:, None])[:, 0]
+    active = st.active  # written last, after its every read
+    nxt = torch.where(active, nxt, eot)
+    hit_cap = st.step + 1 >= st.max_new_row
+    now_eot = active & ((nxt == eot) | hit_cap)
+    st.sum_logprobs += torch.where(active, step_lp, 0.0)
+    # a non-EOT token counts toward the transcript even when it is the
+    # budget-capped last one (the device loop's sample_len semantics)
+    st.length += (active & (nxt != eot)).int()
+    pos = st.step.clamp(0, last_cap)
+    st.tokens_out[rows, pos] = torch.where(active, nxt, st.tokens_out[rows, pos])
+    is_ts = active & ~now_eot & (nxt >= beg)
+
+    lg, _ = decode_step(decoder, nxt[:, None], st.n_past, KVCache(st.cache_k, st.cache_v),
+                        cross_k, cross_v)
+    st.logits.copy_(lg[:, 0])
+    advance = active.int()
+    st.n_past += advance
+    st.step += advance
+    st.prev_tok.copy_(torch.where(active, st.last_tok, st.prev_tok))
+    st.last_tok.copy_(torch.where(active, nxt, st.last_tok))
+    st.last_ts.copy_(torch.where(is_ts, nxt, st.last_ts))
+    st.active &= ~now_eot
+
+
+def _decode_chunk(step: Callable[[], None], state: EngineState, steps: int) -> int:
+    """Up to ``steps`` calls of ``step`` (one greedy step of every slot); the
+    loop stops once no row of ``state`` is active, read a step late (see the
+    module's note). Returns the steps run."""
     flag = None  # the previous step's "any row active", on its way to the host
     ran = 0
     for _ in range(steps):
         if flag is not None and flag.ready() and not flag.get()[0]:
             break
-        filt = _apply_rules_device(st.logits, st.step, RuleState(st.last_tok, st.prev_tok,
-                                                                 st.last_ts),
-                                   sup_mask, blank_mask, (eot, beg, not_, v), use_timestamps,
-                                   max_initial_index)
-        logprobs = torch.log_softmax(filt, dim=-1)
-        nxt = torch.argmax(filt, dim=-1)
-        step_lp = logprobs.gather(1, nxt[:, None])[:, 0]
-        active = st.active
-        nxt = torch.where(active, nxt, eot)
-        hit_cap = st.step + 1 >= st.max_new_row
-        now_eot = active & ((nxt == eot) | hit_cap)
-        st.sum_logprobs += torch.where(active, step_lp, 0.0)
-        # a non-EOT token counts toward the transcript even when it is the
-        # budget-capped last one (the device loop's sample_len semantics)
-        st.length += (active & (nxt != eot)).int()
-        pos = st.step.clamp(0, last_cap)
-        st.tokens_out[rows, pos] = torch.where(active, nxt, st.tokens_out[rows, pos])
-        is_ts = active & ~now_eot & (nxt >= beg)
-
-        lg, _ = decode_step(decoder, nxt[:, None], st.n_past,
-                            KVCache(st.cache_k, st.cache_v), cross_k, cross_v)
-        st.logits = lg[:, 0].float()
-        st.n_past += active.int()
-        st.step += active.int()
-        st.active = active & ~now_eot
-        st.prev_tok = torch.where(active, st.last_tok, st.prev_tok)
-        st.last_tok = torch.where(active, nxt, st.last_tok)
-        st.last_ts = torch.where(is_ts, nxt, st.last_ts)
-        flag = _HostCopy([st.active.any()[None]])
+        step()
+        flag = _HostCopy([state.active.any()[None]])
         ran += 1
     return ran
+
+
+class _GraphHome:
+    """Where an engine's step graphs are made on a CUDA device: a side stream,
+    which waits for the engine's stream before and is waited for after, and
+    one private memory pool that all the engine's live graphs share. No
+    method synchronizes: the capture uses ``capture_begin``/``capture_end``
+    (``torch.cuda.graph`` synchronizes the device and empties the cache), in
+    the thread-local mode, so that other threads (an HTTP front, a profiler)
+    may call the runtime meanwhile."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.stream = torch.cuda.Stream(device)
+        self.pool = None
+
+    def release(self) -> None:
+        """Forget the pool once every graph in it is gone: the allocator
+        frees a pool that no graph holds, and takes no capture into it."""
+        self.pool = None
+
+    def warm_up(self, body: Callable[[], None]) -> None:
+        """``body`` once, eagerly, on the side stream: the stream's cuBLAS
+        workspace and the kernels' one-time set-up happen here, not in the
+        capture."""
+        main = torch.cuda.current_stream(self.device)
+        self.stream.wait_stream(main)
+        with torch.cuda.stream(self.stream):
+            body()
+        main.wait_stream(self.stream)
+
+    def capture(self, body: Callable[[], None]) -> "_LockedReplay":
+        """``body`` captured as a graph on the side stream; the capture runs
+        nothing on the card."""
+        if self.pool is None:
+            self.pool = torch.cuda.graph_pool_handle()
+        main = torch.cuda.current_stream(self.device)
+        self.stream.wait_stream(main)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(self.stream):
+            graph.capture_begin(pool=self.pool, capture_error_mode="thread_local")
+            try:
+                body()
+            finally:
+                graph.capture_end()
+        main.wait_stream(self.stream)
+        return _LockedReplay(graph, self.device)
+
+
+@functools.cache
+def _cu_graph_launch():
+    """``cuGraphLaunch`` from libcuda, called with the interpreter's lock held
+    (``ctypes.PyDLL``)."""
+    fn = ctypes.PyDLL("libcuda.so.1").cuGraphLaunch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+class _LockedReplay:
+    """A captured graph whose replay launches on the current stream without
+    giving up the interpreter's lock. torch's ``replay`` gives it up, and a
+    launch in flight on this thread while another thread stops
+    ``torch.profiler`` (which holds the lock through its stop) deadlocks
+    both: the profiler in its stop, the launch in libcuda, the card idle
+    (torch 2.11, CUDA 12.8, a large-v3 step's graph). Holding the lock keeps
+    the two apart."""
+
+    def __init__(self, graph: "torch.cuda.CUDAGraph", device: torch.device):
+        self.graph = graph  # owns the executable graph
+        self.device = device
+        self.exec = graph.raw_cuda_graph_exec()
+
+    def replay(self) -> None:
+        err = _cu_graph_launch()(self.exec, torch.cuda.current_stream(self.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"cuGraphLaunch failed: CUresult {err}")
+
+
+def _graph_home(device: torch.device) -> Optional[_GraphHome]:
+    """The step graphs' home on ``device``: None off CUDA, where the step runs
+    eagerly."""
+    return _GraphHome(device) if device.type == "cuda" else None
 
 
 @torch.inference_mode()
@@ -299,17 +399,25 @@ class SlotEngine:
         self.pool_ctx = min(padded.shape[1] + self.max_new + 8, self.cfg.n_text_ctx)
         self.max_new = min(self.max_new, self.pool_ctx - padded.shape[1])
 
-        self.sup_mask, self.blank_mask = build_masks(
+        sup_mask, blank_mask = build_masks(
             self.vocab, self.device, suppress_tokens=self.options.suppress_tokens)
         if not self.options.suppress_blank:
-            self.blank_mask = torch.zeros_like(self.blank_mask)
-        self.max_initial_index = None
+            blank_mask = torch.zeros_like(blank_mask)
+        max_initial_index = None
         if (self.options.max_initial_timestamp is not None
                 and not self.options.without_timestamps):
-            self.max_initial_index = round(self.options.max_initial_timestamp / 0.02)
+            max_initial_index = round(self.options.max_initial_timestamp / 0.02)
         # transcribe_many restores these: _prepare_streams re-derives the
         # masks from per-call TranscribeOptions
-        self._option_masks = (self.sup_mask, self.blank_mask, self.max_initial_index)
+        self._option_masks = (sup_mask, blank_mask, max_initial_index)
+        # the rule masks a decode step reads: fixed buffers, which _set_rules
+        # fills (a captured step reads them at their addresses)
+        self.sup_mask, self.blank_mask = sup_mask.clone(), blank_mask.clone()
+        self.max_initial_index = max_initial_index
+        # the decode step's CUDA graphs: (use_timestamps, max_initial_index)
+        # -> (the pools it was captured over, the graph's replay, its launches)
+        self._step_graphs: dict = {}
+        self._captures = 0  # the graphs captured over the engine's life
 
         if admit_buckets is not None:
             self._ADMIT_BUCKETS = tuple(sorted({int(b) for b in admit_buckets}, reverse=True))
@@ -326,7 +434,9 @@ class SlotEngine:
     def stats(self) -> dict:
         """The running totals of the worker's stages and counters: seconds
         as ``<stage>_s`` (admit, chunk, pull, harvest, ...), ``rounds``,
-        ``decode_steps`` (the steps the chunks ran), ``encode_windows``,
+        ``decode_steps`` (the steps the chunks ran), ``graph_steps`` and
+        ``graph_captures`` (of those steps, the replays of a captured CUDA
+        graph, and the captures; on a CUDA device only), ``encode_windows``,
         ``encode_rows`` and ``encode_buckets`` (the admission buckets' real
         windows, their rows with padding, and the buckets). Each run of a
         scheduler starts a fresh dict."""
@@ -479,6 +589,9 @@ class SlotEngine:
         """Make the state and the cross pools (one row a slot and the trash
         row, float or QuantKV) at the first staged bucket's dtypes and
         widths, if they do not exist yet."""
+        if (self._state is None or self._cross_pool_k is None) and self._step_graphs:
+            self._step_graphs.clear()  # they read the old pools; free them first
+            self._home.release()
         if self._state is None:
             self._init_state(getattr(ck, "data", ck).dtype)
         if self._cross_pool_k is None:
@@ -542,7 +655,7 @@ class SlotEngine:
         ``self.stats`` (admit / chunk / pull / harvest seconds, rounds)."""
         # a prior transcribe_streams/warmup re-derived the rule masks from
         # ITS TranscribeOptions; this path decodes with the constructor's
-        self.sup_mask, self.blank_mask, self.max_initial_index = self._option_masks
+        self._set_rules(*self._option_masks)
         if self.schedule == "overlapped":
             return self._transcribe_many_overlapped(audios)
         queue = list(enumerate(audios))
@@ -858,12 +971,17 @@ class SlotEngine:
                                    "fresh SlotEngine for transcribe_streams")
             self._check_hbm_budget(pool_ctx=needed)
             self.pool_ctx = needed
-        self.sup_mask, self.blank_mask = build_masks(self.vocab, self.device,
-                                                     suppress_tokens=topts.suppress_tokens)
-        self.max_initial_index = None
-        if not topts.without_timestamps:
-            self.max_initial_index = round(1.0 / 0.02)
+        self._set_rules(*build_masks(self.vocab, self.device,
+                                     suppress_tokens=topts.suppress_tokens),
+                        None if topts.without_timestamps else round(1.0 / 0.02))
         return temps
+
+    def _set_rules(self, sup_mask, blank_mask, max_initial_index: Optional[int]) -> None:
+        """The decode step's rule masks, copied into their buffers, and its
+        timestamp cap."""
+        self.sup_mask.copy_(sup_mask)
+        self.blank_mask.copy_(blank_mask)
+        self.max_initial_index = max_initial_index
 
     # -- long-form scheduler hooks --
 
@@ -885,11 +1003,48 @@ class SlotEngine:
     def _stream_chunk_snapshot(self, topts) -> _HostCopy:
         """Run one decode chunk, count its steps (``decode_steps``) and start
         the copy of the harvest arrays (read one round later)."""
-        self.spans.count("decode_steps", _decode_chunk(
-            self.model.decoder, self._state, self._cross_pool_k, self._cross_pool_v,
-            self.sup_mask, self.blank_mask, self.chunk_steps, not topts.without_timestamps,
-            self.max_initial_index))
+        use_ts = not topts.without_timestamps
+        body = functools.partial(_decode_step, self.model.decoder, self._state,
+                                 self._cross_pool_k, self._cross_pool_v, self.sup_mask,
+                                 self.blank_mask, use_ts, self.max_initial_index)
+        if self._home is None:
+            self.spans.count("decode_steps", _decode_chunk(body, self._state, self.chunk_steps))
+        else:
+            captures = self._captures
+            ran = _decode_chunk(functools.partial(self._graph_step, body,
+                                                  (use_ts, self.max_initial_index)),
+                                self._state, self.chunk_steps)
+            # a capture follows one eager step; every other step is a replay
+            new = self._captures - captures
+            self.spans.count_together(decode_steps=ran, graph_steps=ran - new,
+                                      graph_captures=new)
         return _snapshot(self._state)
+
+    @functools.cached_property
+    def _home(self) -> Optional[_GraphHome]:
+        """Where this engine's step graphs are made; None off CUDA."""
+        return _graph_home(self.device)
+
+    def _graph_step(self, body: Callable[[], None], key: tuple) -> None:
+        """One decode step as the replay of its CUDA graph for ``key`` (the
+        rule options, Python branches of the body) over the current pools.
+        The first step of a key on a pool runs ``body`` eagerly, then
+        captures it. The kernels' launch counters count what the card runs:
+        the capture's counts are taken back, and each replay adds them."""
+        pools = (self._state, self._cross_pool_k, self._cross_pool_v)
+        entry = self._step_graphs.get(key)
+        if entry is not None and all(a is b for a, b in zip(entry[0], pools)):
+            _, graph, launches = entry
+            graph.replay()
+            add_launches(launches)
+            return
+        self._home.warm_up(body)
+        before = kernel_launches()
+        graph = self._home.capture(body)
+        launches = {k: n - before[k] for k, n in kernel_launches().items() if n != before[k]}
+        add_launches({k: -n for k, n in launches.items()})
+        self._step_graphs[key] = (pools, graph, launches)
+        self._captures += 1
 
     def _stream_result(self, s: int, pulled) -> DecodingResult:
         """Slot ``s``'s window result, built as the offline t=0 rung builds it."""

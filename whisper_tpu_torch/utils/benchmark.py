@@ -40,6 +40,7 @@ from ..decoding.device_beam import beam_decode_device
 from ..decoding.device_loop import build_masks, decode_segment_device
 from ..frontend.mel import frame_count, log_mel_spectrogram, mel_window
 from ..io.ggml import read_ggml_config
+from ..kernels.launches import kernel_launches
 from ..model.decoder import KVCache, init_cache
 from ..model.encoder import encode
 from ..errors import WhisperError
@@ -147,25 +148,6 @@ def card_line(device: torch.device) -> Optional[str]:
     except (OSError, subprocess.SubprocessError):
         return None
     return out.stdout.strip()
-
-
-def kernel_launches() -> dict:
-    """Every kernel wrapper's launch count so far: K1 by kernel (bf16, f32,
-    K1b), the K1c backward, K2/K3, K4 (all, and self alone), K5, K6, K7."""
-    from ..kernels import beam_gather, fused_quant
-    from ..kernels.cross_attention_int8 import cross_attention_int8
-    from ..kernels.decode_attention import cached_attention
-    from ..kernels.flash_attention import flash_attention, flash_sdpa
-
-    return {"k1": flash_attention.launches, "k1_f32": flash_attention.f32_launches,
-            "k1b": flash_attention.int8_launches, "k1c_bwd": flash_sdpa.bwd_launches,
-            "act": fused_quant.act_quant.launches, "ln": fused_quant.ln_quant.launches,
-            "gelu": fused_quant.gelu_quant.launches, "k4": cross_attention_int8.launches,
-            "k4_self": cross_attention_int8.masked_launches,
-            "k4_ragged": cross_attention_int8.ragged_launches, "k5": cached_attention.launches,
-            "k5_ragged": cached_attention.ragged_launches,
-            "k6": beam_gather.permute_rows_multi.launches,
-            "k7": beam_gather.cow_copy_rows.launches}
 
 
 def run_benchmark(
@@ -350,12 +332,15 @@ def run_engine_benchmark(
     launches0 = kernel_launches()
     waves = 0
     audio_done = 0.0
+    steps = dict.fromkeys(("decode_steps", "graph_steps", "graph_captures"), 0)
     t0 = time.perf_counter()
     deadline = t0 + seconds
     while True:
         results = engine.transcribe_many(audios)
         waves += 1
         audio_done += total_audio
+        for k in steps:
+            steps[k] += engine.stats.get(k, 0)
         if time.perf_counter() >= deadline:
             break
     wall = time.perf_counter() - t0
@@ -387,6 +372,9 @@ def run_engine_benchmark(
             "n_results": sum(r is not None for r in results),
             "tokens_last_wave": sum(len(r.tokens) for r in results if r is not None),
             "stats": dict(engine.stats),  # the last timed wave's
+            # decode steps over the timed waves, those that replayed the
+            # engine's step graph, and the graphs captured
+            "steps": steps,
             # K7's forked rows over the timed waves' steps (the beam engine's)
             "forks": engine.fork_stats() if beam_size else None,
             "device": str(device),

@@ -94,6 +94,12 @@ class StageTimers:
     def count(self, key: str, n: int = 1) -> None:
         self.totals[key] = self.totals.get(key, 0) + n
 
+    def count_together(self, **counts: int) -> None:
+        """Add to several counters in one update of ``totals``: a copy of it
+        taken on another thread holds all of the additions or none."""
+        t = self.totals
+        t.update({k: t.get(k, 0) + n for k, n in counts.items()})
+
     def record(self, on: bool) -> None:
         """Keep the stages that end from now on (True), or stop (False)."""
         self.recording = bool(on)
