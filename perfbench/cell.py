@@ -2,13 +2,16 @@
 through ``EngineServer.submit``, a warm-up, the measured window, the trace
 of a sub-window, and the comparison with the reference.
 
-From the program (``whisper_tpu_torch``) this takes the model's public
-construction, ``SlotEngine``, ``EngineServer`` with ``submit`` and
-``engine.stats``, and ``kernel_launches``; it counts the windows each
-admission bucket holds at ``SlotEngine._install_bucket``, which no counter
-of the program reports yet. Every timing is the benchmark's own host clock
-(``time.perf_counter``), taken in the futures' done callbacks, which run on
-the server's worker thread as it resolves each request.
+The model is reached through the configuration's family
+(``perfbench/families``): its sizes, its weights from the seed, the served
+program and the comparison with its reference. From the program
+(``whisper_tpu_torch``) this takes ``EngineServer`` with ``submit`` and
+``engine.stats``, its kernels' build and ``kernel_launches``; it counts the
+windows each admission bucket holds at ``SlotEngine._install_bucket``,
+which no counter of the program reports yet. Every timing is the
+benchmark's own host clock (``time.perf_counter``), taken in the futures'
+done callbacks, which run on the server's worker thread as it resolves each
+request.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ from typing import List, Optional
 
 import torch
 
-from . import check, traffic as traffic_mod, weights
+from . import check, families, traffic as traffic_mod
 
 RAMP = (1, 2, 4, 8, 16)  # warm-up joins: each admission bucket size once
 
@@ -103,40 +106,6 @@ def wait_until(pred, timeout: float, what: str, poll: float = 0.01) -> None:
         time.sleep(poll)
 
 
-def build_program(dims: dict, tree: dict, cell: dict, device):
-    """The served model (bf16, int8 decoder weights as ``cli serve
-    --quantize`` loads them), its engine and the server's options."""
-    from whisper_tpu_torch.config import WhisperConfig
-    from whisper_tpu_torch.decoding.task import DecodingOptions
-    from whisper_tpu_torch.frontend.mel import mel_filter_bank
-    from whisper_tpu_torch.io.vocab import make_vocab
-    from whisper_tpu_torch.model.decoder import TextDecoder
-    from whisper_tpu_torch.model.encoder import AudioEncoder
-    from whisper_tpu_torch.model.load import WhisperModel
-    from whisper_tpu_torch.model.quant import quantize_decoder_weights
-    from whisper_tpu_torch.parallel.engine import SlotEngine
-    from whisper_tpu_torch.pipeline.transcribe import TranscribeOptions
-
-    d = dims
-    cfg = WhisperConfig(d["n_vocab"], d["n_audio_ctx"], d["n_state"], d["n_head"],
-                        d["n_audio_layer"], d["n_text_ctx"], d["n_state"], d["n_head"],
-                        d["n_text_layer"], d["n_mels"], 1).validate()
-    tokens = [f"tok{i}".encode() for i in range(cfg.n_vocab)]
-    filters = torch.from_numpy(mel_filter_bank(cfg.n_mels)).to(device=device,
-                                                                dtype=torch.float32)
-    params = quantize_decoder_weights(tree)
-    model = WhisperModel(config=cfg, params=params, filters=filters,
-                         vocab=make_vocab(cfg.n_vocab, tokens, cfg.n_vocab),
-                         encoder=AudioEncoder(params, cfg), decoder=TextDecoder(params, cfg))
-    eng = cell["engine"]
-    if eng["kind"] != "slot":
-        raise ValueError(f"engine kind {eng['kind']!r} has no driver here")
-    engine = SlotEngine(model, n_slots=eng["slots"], options=DecodingOptions(),
-                        chunk_steps=eng["chunk_steps"], max_new_tokens=eng["max_new_tokens"],
-                        quantize=eng["quantize"])
-    return engine, TranscribeOptions(**cell["options"])
-
-
 def _build_kernels() -> None:
     """Every CUDA kernel of the program built (nvcc, first run in a
     checkout) and loaded, at once."""
@@ -148,9 +117,11 @@ def _build_kernels() -> None:
 def count_installs(engine) -> List[tuple]:
     """(host time, windows, bucket rows) of each admission bucket the engine
     installs from now on: the windows are the real ones, the rows include
-    the bucket's padding."""
+    the bucket's padding; none for an engine without admission buckets."""
     installs: List[tuple] = []
-    real = engine._install_bucket
+    real = getattr(engine, "_install_bucket", None)
+    if real is None:
+        return installs
 
     def install(slot_list, wins, bucket, *args, **kwargs):
         installs.append((time.perf_counter(), len(slot_list), int(bucket)))
@@ -211,7 +182,8 @@ class CellRun:
         self.t_process = t_process
         self.control = control  # the control in the program's place (run.py --control 1)
         self._trace = None
-        self.dims = dims or weights.dims(config)
+        self.family = families.of(config)
+        self.dims = dims or self.family.dims(config)
         self.tr = traffic_mod.Traffic(cell["traffic"], self.seed)
         self.out: dict = {}
 
@@ -221,8 +193,8 @@ class CellRun:
         on_card = self.device.type == "cuda"
         if on_card:
             _build_kernels()
-        tree = weights.draw(self.dims, self.seed, torch.bfloat16, self.device)
-        engine, topts = build_program(self.dims, tree, self.cell, self.device)
+        tree = self.family.draw(self.dims, self.seed, torch.bfloat16, self.device)
+        engine, topts = self.family.build(self.dims, tree, self.cell, self.device)
         del tree
         self.installs = count_installs(engine)
         self._closed(engine, topts)
@@ -359,12 +331,12 @@ class CellRun:
     def _check(self) -> None:
         c = self.cell["check"]
         picked = check.sample(self.out["done"], self.seed, c["min_tokens"], c["max_requests"])
-        tree = weights.draw(self.dims, self.seed, torch.bfloat16, self.device)
+        tree = self.family.draw(self.dims, self.seed, torch.bfloat16, self.device)
         t0 = time.perf_counter()
         bank = self.tr.bank
-        r = check.readings(picked, tree, self.dims,
-                           lambda e: bank[e["offset"]: e["offset"] + e["samples"]], self.device,
-                           control=self.control)
+        r = self.family.readings(picked, tree, self.dims,
+                                 lambda e: bank[e["offset"]: e["offset"] + e["samples"]],
+                                 self.device, control=self.control)
         r["check_s"] = time.perf_counter() - t0
         r["unanswered"] = self.out["unanswered"]
         self.out["readings"] = r
@@ -378,10 +350,15 @@ def profiler_cost(out: dict, chunk_steps: int) -> Optional[dict]:
     if not tr or not host:
         return None
 
+    def ms(stats, keys, n):
+        """Host ms of ``keys``' seconds over ``n``; None where a key is unread."""
+        if not n or any(k not in stats for k in keys):
+            return None
+        return 1000.0 * sum(stats[k] for k in keys) / n
+
     def costs(stats, windows):
-        steps = stats.get("rounds", 0) * chunk_steps
-        return ((1000.0 * (stats["chunk_s"] + stats["pull_s"]) / steps) if steps else None,
-                (1000.0 * stats["admit_s"] / windows) if windows else None)
+        return (ms(stats, ("chunk_s", "pull_s"), stats.get("rounds", 0) * chunk_steps),
+                ms(stats, ("admit_s",), windows))
 
     traced = costs(tr["stats"], tr["encode_windows"])
     untraced = costs(host["stats"], host["encode_windows"])

@@ -3,21 +3,23 @@
     python3 -m perfbench.run --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
 from the repository root. The cell is ``BENCHMARK.json``'s workload of that
-name, its file ``perfbench/workloads/<cell>.json`` and its configuration's
-``perfbench/configs/<config>.json``; per-layer metrics are read by
-``perfbench/metrics/<metric>.py``. The last line of standard output is one
-JSON object: ``correct``, ``attempted``, ``failed``, ``metrics`` (the cell's
-end-to-end metrics, or with ``--trace 1`` its per-layer ones), ``device``,
-with ``--trace 1`` ``breakdown``, and last ``checks``: each number the
-comparison with the reference read, beside its limit. The same numbers end
+name, its file ``perfbench/workloads/<cell>.json``, its configuration's
+``perfbench/configs/<config>.json`` and the family that file names
+(``perfbench/families/<family>.py``: the model's weights, program and
+reference); per-layer metrics are read by ``perfbench/metrics/<metric>.py``.
+The last line of standard output is one JSON object: ``correct``,
+``attempted``, ``failed``, ``metrics`` (the cell's end-to-end metrics, or
+with ``--trace 1`` its per-layer ones), ``device``, with ``--trace 1``
+``breakdown``, and last ``checks``: each number the comparison with the
+reference read, beside its limit. The same numbers end
 standard error. Without a CUDA card, or with fewer than the cell asks for,
 it exits 2 and prints no result.
 
 ``--control 1`` puts the control in the program's place in the comparison,
-after the window (``check.readings(control=True)``): the result line then
-judges the control, whose ``correct`` must come out false, and standard
-error gives the program's own widest gap beside it. The benchmark's runs
-leave it at 0.
+after the window (the family's ``readings(control=True)``): the result
+line then judges the control, whose ``correct`` must come out false, and
+standard error gives the program's own widest gap beside it. The
+benchmark's runs leave it at 0.
 """
 
 from __future__ import annotations

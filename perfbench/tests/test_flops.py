@@ -1,9 +1,9 @@
 import pytest
 
-from perfbench import flops, layers, roofline, weights
+from perfbench import families, flops, layers, roofline
 from perfbench import run as R
 
-LARGE = weights.dims(R.load_cell("large-v3.batch-int8", R.load_spec())[2])
+LARGE = families.load("whisper").dims(R.load_cell("large-v3.batch-int8", R.load_spec())[2])
 
 
 def test_k1_bound_at_sixteen_windows_is_perf_md_s_0_1864_ms():

@@ -1,7 +1,10 @@
+import ast
 import os
 import subprocess
 import sys
 from pathlib import Path
+
+from perfbench import families
 
 ROOT = Path(__file__).resolve().parents[2]
 
@@ -10,6 +13,7 @@ import sys
 import perfbench.run, perfbench.cell, perfbench.check, perfbench.trace
 import perfbench.layers, perfbench.flops, perfbench.roofline, perfbench.traffic
 import perfbench.reference.model, perfbench.reference.mel, perfbench.reference.rules
+import perfbench.families, perfbench.weights
 from perfbench.tests.rehearsal import rehearse
 from perfbench.run import FORBIDDEN, forbidden_modules, load_spec, metric_reader
 for m in load_spec()["per_layer"]:
@@ -32,9 +36,32 @@ def test_a_run_loads_no_jax_and_no_jax_package():
     assert "FORBIDDEN []" in p.stdout
 
 
+def reference_modules() -> set:
+    """The ``perfbench.reference`` modules that the modules of the family
+    directory import, found in their sources."""
+    found = set()
+    for path in sorted(families.DIR.glob("*.py")):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+                names = [node.module] + [f"{node.module}.{a.name}" for a in node.names]
+            else:
+                continue
+            found |= {n for n in names if n.startswith("perfbench.reference.") and _is_module(n)}
+    return found
+
+
+def _is_module(name: str) -> bool:
+    path = ROOT / name.replace(".", "/")
+    return path.with_suffix(".py").is_file() or (path / "__init__.py").is_file()
+
+
 def test_the_reference_imports_nothing_of_the_program():
-    script = ("import sys, perfbench.reference.model, perfbench.reference.mel, "
-              "perfbench.reference.rules, perfbench.reference.special; "
+    """Every family's reference modules, as its module imports them."""
+    mods = reference_modules()
+    assert {f"perfbench.reference.{m}" for m in ("model", "mel", "rules", "special")} <= mods
+    script = (f"import sys, {', '.join(sorted(mods))}; "
               "print(sorted(m for m in sys.modules if m.split('.')[0] in "
               "('whisper_tpu_torch', 'whisper_tpu', 'jax')))")
     p = subprocess.run([sys.executable, "-c", script], cwd=ROOT, capture_output=True, text=True,

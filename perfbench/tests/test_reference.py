@@ -6,7 +6,7 @@ import numpy as np
 import pytest
 import torch
 
-from perfbench import weights
+from perfbench import families
 from perfbench.reference.mel import log_mel, mel_filters, padded_length, window
 from perfbench.reference.model import Reference
 from perfbench.reference.special import Special
@@ -27,7 +27,7 @@ def both():
     cfg = WhisperConfig(d["n_vocab"], d["n_audio_ctx"], d["n_state"], d["n_head"],
                         d["n_audio_layer"], d["n_text_ctx"], d["n_state"], d["n_head"],
                         d["n_text_layer"], d["n_mels"], 1)
-    tree = weights.draw(d, SEED, torch.float32, "cpu")
+    tree = families.load("whisper").draw(d, SEED, torch.float32, "cpu")
     return cfg, tree
 
 

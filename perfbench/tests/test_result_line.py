@@ -2,11 +2,12 @@ import io
 import json
 
 from perfbench import run as R
-from perfbench import weights
+from perfbench import families
 from perfbench.cell import per_layer
 
 SPEC = R.load_spec()
-DIMS = weights.dims(R.load_files("large-v3-turbo.batch-int8")[1])
+CONF = R.load_files("large-v3-turbo.batch-int8")[1]
+DIMS = families.of(CONF).dims(CONF)
 
 
 def fake_out(cell):

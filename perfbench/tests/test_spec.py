@@ -5,7 +5,7 @@ from pathlib import Path
 import pytest
 
 from perfbench import run as R
-from perfbench import weights
+from perfbench import families
 
 ROOT = Path(__file__).resolve().parents[2]
 SPEC = R.load_spec()
@@ -49,7 +49,7 @@ def test_every_file_is_found_by_its_name():
         assert c["file"] == f"perfbench/configs/{c['name']}.json"
         conf = json.loads((ROOT / c["file"]).read_text())
         assert conf["source"] == c["source"] and conf["reduced"] == c["reduced"] == []
-        weights.dims(conf)
+        families.of(conf).dims(conf)
     for w in SPEC["workloads"]:
         entry, cell, conf = R.load_cell(w["name"], SPEC)
         assert cell["name"] == w["name"] and conf["name"] == w["config"]
